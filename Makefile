@@ -14,7 +14,7 @@ bench:
 	python bench.py
 
 bench-sweep:
-	python benchmarks/run_single.py --sizes 64,128,256 --out benchmarks/results/single_$$(hostname).json
+	python benchmarks/run_single.py --sizes 64,128,256 --out chiprun_out/single.json
 
 demo:
 	python examples/demo_single.py 64 4

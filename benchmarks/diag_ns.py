@@ -1,163 +1,111 @@
-"""Navier-Stokes step: the projection cost center, by device timeline.
+"""Navier–Stokes step: correctness gates, then the step and its pieces timed.
 
-The round-3 verdict flagged the NS step's 29.9 ms at 256^3 as unattacked:
-3 stages of (2.9 ms fused momentum + 7.2 ms projection), the projection
-bounded by XLA's one fwd+inv rfft pair measured at 5.0 ms alone. Round 4
-replaces the spectral round trip with dense DFT matmuls on the MXU
-(ops/poisson._rfft3_mm/_irfft3_mm, HIGHEST precision, f64-built tables)
-— benchmarks/diag_fft.py measured the Poisson round trip at 3.42 ms
-matmul-DFT vs 4.93 ms FFT (31% faster). This script gates the NS step's
-correctness (fused vs generic, divergence annihilation, matmul-DFT vs
-FFT Poisson), times the step and its pieces by device timeline, and
-commits the numbers to benchmarks/results/ns_v5e.json.
+Gates (before any timing): the compact divergence after one step is at
+rounding level, and the f32 Poisson solve (jnp.fft, cuFFT on the GPU)
+matches the same inverse taken with numpy's float64 FFT on the host.
+Then the step, one projection and one Poisson solve are timed with the host
+clock over repeated calls that end in ``block_until_ready``.
 
-Run on the real TPU:  python benchmarks/diag_ns.py [n=256]
+    python benchmarks/diag_ns.py [n=256] [--out chiprun_out/ns.json]
+
+Every result names the device it ran on; without a GPU it refuses to run.
 """
 
+import argparse
 import json
 import math
 import os
+import statistics
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-import jax.numpy as jnp
-
-jax.config.update(
-    "jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"]
-)
-import numpy as np
-
-from cfd_tpu.models import NavierStokes, taylor_green
-from cfd_tpu.ops.poisson import _solve_poisson, solve_poisson
-from cfd_tpu.schemes import SCHEME4_PERIODIC
-from cfd_tpu.utils.profiling import device_op_time_ms
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
-def main():
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
-    L = 2 * math.pi
-    dx = L / n
+def time_ms(fn, *args, reps=5, iters=4):
+    jax = sys.modules["jax"]
+    jax.block_until_ready(fn(*args))
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*args)
+        jax.block_until_ready(out)
+        samples.append((time.perf_counter() - t0) / iters * 1e3)
+    return statistics.median(samples)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("n", nargs="?", type=int, default=256)
+    ap.add_argument("--out", default=os.path.join("chiprun_out", "ns.json"))
+    args = ap.parse_args(argv)
+
+    import jax
+
+    if jax.default_backend() != "gpu":
+        sys.exit(f"diag_ns: no GPU (JAX backend is {jax.default_backend()!r})")
+    from cfd_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(ROOT)
+    import jax.numpy as jnp
+    import numpy as np
+
+    from cfd_tpu.models import NavierStokes, taylor_green
+    from cfd_tpu.ops.poisson import laplacian_eigenvalues, solve_poisson
+    from cfd_tpu.schemes import SCHEME4_PERIODIC
+
+    n = args.n
+    dx = 2 * math.pi / n
     c = jnp.arange(n, dtype=jnp.float32) * dx
     u = taylor_green(c, c, c)
     dt = 1e-3
     sch = SCHEME4_PERIODIC
-
     ns = NavierStokes.single_device(dx, sch, nu=1e-3)
-    pts = n**3
     gates = {}
 
-    # -- correctness gates before timing anything ---------------------------
-    u1 = jax.jit(lambda uu: ns.step(uu, dt))(u)
+    step = jax.jit(lambda uu: ns.step(uu, dt))
+    u1 = step(u)
     speed = float(jnp.max(jnp.sqrt(sum(ci * ci for ci in u1))))
     div = float(jnp.max(jnp.abs(ns.divergence(u1)))) / speed
     print(f"post-step |div u|/|u| (compact, projected): {div:.2e}")
     gates["post_step_rel_divergence"] = div
     assert div < 1e-4, div
 
-    # matmul-DFT Poisson vs a HOST f64 FFT reference on a random rhs.
-    # (The TPU's own f32 jnp.fft is NOT a usable reference: at 256^3 it
-    # mangles Nyquist-plane modes ~28% — measured below and recorded as a
-    # gate value — which is itself a reason solve_poisson routes TPU f32
-    # through the MXU tensordot transforms.)
     rng = np.random.default_rng(0)
     rhs_np = rng.standard_normal((n, n, n))
     rhs_np -= rhs_np.mean()
     rhs = jnp.asarray(rhs_np, jnp.float32)
-    rdt = jnp.float32
-    from cfd_tpu.ops.poisson import laplacian_eigenvalues
-
-    sch_p = sch
-    lam = laplacian_eigenvalues(sch_p, rhs.shape, (dx, dx, dx))
+    lam = laplacian_eigenvalues(sch, rhs.shape, (dx, dx, dx))
     inv = np.zeros_like(lam)
     inv[lam != 0.0] = 1.0 / lam[lam != 0.0]
-    p_ref = np.fft.irfftn(
-        np.fft.rfftn(rhs_np, axes=(-3, -2, -1)) * inv,
-        s=rhs_np.shape,
-        axes=(-3, -2, -1),
-    )
-    scale = float(np.max(np.abs(p_ref)))
-
-    p_auto = np.asarray(solve_poisson(rhs, dx, sch))  # matmul-DFT on TPU
-    perr = float(np.max(np.abs(p_auto - p_ref))) / scale
-    print(f"matmul-DFT poisson vs host f64 FFT rel err: {perr:.2e}")
-    gates["matmul_dft_poisson_vs_f64_rel"] = perr
+    p_ref = np.fft.irfftn(np.fft.rfftn(rhs_np) * inv, s=rhs_np.shape, axes=(0, 1, 2))
+    poisson = jax.jit(lambda r: solve_poisson(r, dx, sch))
+    perr = float(np.max(np.abs(np.asarray(poisson(rhs)) - p_ref)) / np.max(np.abs(p_ref)))
+    print(f"f32 Poisson vs host f64 FFT rel err: {perr:.2e}")
+    gates["poisson_vs_f64_rel"] = perr
     assert perr < 1e-5, perr
 
-    @jax.jit
-    def poisson_fft(r):
-        ph = jnp.fft.rfftn(r, axes=(-3, -2, -1)) * jnp.asarray(inv, rdt)
-        return jnp.fft.irfftn(
-            ph.astype(jnp.complex64), s=r.shape, axes=(-3, -2, -1)
-        ).astype(r.dtype)
-
-    p_fft = np.asarray(poisson_fft(rhs))
-    ferr = float(np.max(np.abs(p_fft - p_ref))) / scale
-    print(f"TPU f32 FFT poisson vs host f64 FFT rel err: {ferr:.2e}")
-    gates["tpu_f32_fft_poisson_vs_f64_rel"] = ferr
-
-    rows = {}
-
-    def report(name, fn, x, iters=6):
-        best = math.inf
-        floor_best = math.inf
-        for _ in range(3):
-            ms, floor_ms, k = device_op_time_ms(fn, x, iters=iters)
-            best = min(best, ms)
-            floor_best = min(floor_best, floor_ms)
-            time.sleep(1.0)
-        gpts = pts / (best * 1e-3) / 1e9 if best < math.inf else 0.0
-        print(
-            f"{name:<30} {best:7.3f} ms device  ({gpts:6.1f} Gpt/s)"
-            f"   [copy floor {floor_best:.3f}]"
-        )
-        rows[name.strip()] = {
-            "ms_device": round(best, 4),
-            "gpts_per_s": round(gpts, 2),
-            "copy_floor_ms": round(floor_best, 4),
-        }
-        return best
-
-    print(f"\n-- {n}^3 f32, device-timeline minima over 3 captures --")
-    # full step: array-in/array-out wrapper (the helper feeds out back in)
-    uy0, uz0 = u[1], u[2]
-    t_step = report(
-        "NS step (3 stages)", lambda ux: ns.step((ux, uy0, uz0), dt)[0], u[0],
-        iters=4,
-    )
-    report("  projection (1 of 3)", lambda ux: ns.project((ux, uy0, uz0))[0], u[0])
-    sp3 = (float(dx),) * 3
-    report(
-        "  poisson matmul-DFT",
-        lambda r: _solve_poisson(r, sch_p, sp3, 0.0),
-        rhs,
-    )
-    report("  poisson fft (f32 ref)", poisson_fft, rhs)
-
-    out_path = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "results", "ns_v5e.json"
-    )
+    rows = {
+        "ns_step_ms": time_ms(step, u),
+        "projection_ms": time_ms(jax.jit(ns.project), u),
+        "poisson_ms": time_ms(poisson, rhs),
+        "copy_floor_ms": time_ms(jax.jit(lambda x: x * 1.000001), rhs),
+    }
+    for k, v in rows.items():
+        print(f"{k:<16} {v:.4f}")
+    dev = jax.devices()[0]
     payload = {
-        "config": {
-            "n": n,
-            "dtype": "float32",
-            "scheme": "pade4_periodic (+ pade4_d2 for diffusion)",
-            "nu": 1e-3,
-            "dt": dt,
-            "method": "device timeline minima over 3 captures "
-            "(utils.profiling.device_op_time_ms)",
-        },
+        "device": {"platform": dev.platform, "kind": dev.device_kind, "count": len(jax.devices())},
+        "config": {"n": n, "dtype": "float32", "scheme": sch.name, "nu": 1e-3, "dt": dt},
         "gates": gates,
         "rows": rows,
     }
-    with open(out_path, "w") as fh:
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as fh:
         json.dump(payload, fh, indent=1)
-        fh.write("\n")
-    print(f"\nwrote {out_path}")
-    print(f"\nNS step: {t_step:.2f} ms (round-3 baseline 29.9 ms)")
+    print(f"wrote {args.out}")
 
 
 if __name__ == "__main__":

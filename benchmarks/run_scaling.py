@@ -1,8 +1,7 @@
 """Multi-device functional-scaling sweep on the virtual CPU mesh.
 
-The honest stand-in for the reference's 15-config multi-GPU table
-(perf-test/multi-GPU/PyCUDA/ref-results/, tabulated in BASELINE.md) until
-real multi-chip TPU hardware is attached: runs the full distributed
+A functional stand-in for the reference's 15-config multi-GPU table
+(perf-test/multi-GPU/PyCUDA/ref-results/, tabulated in BASELINE.md): runs the full distributed
 derivative pipeline for all three directions over 8 virtual CPU devices,
 records the per-phase breakdown (halo+RHS+local solve / reduced interface
 system / rank-2 update — the same phase split the reference logs) and an
@@ -126,7 +125,7 @@ def _payload(results):
         "n_devices": jax.device_count(),
         "note": (
             "functional scaling on 8 virtual CPU devices — "
-            "correctness + phase structure, not TPU speed. 'ms' is the "
+            "correctness + phase structure, not device speed. 'ms' is the "
             "chain-slope time (the number of record); 'phases_ms' is a "
             "per-dispatch profile whose entries include dispatch overhead "
             "and per-phase resharding, so its total exceeds 'ms' by orders "

@@ -1,6 +1,6 @@
-"""cfd_tpu — a TPU-native compact finite-difference framework.
+"""cfd_tpu — a compact finite-difference framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 CUDA/OpenCL + MPI library ``ashwinsrnth/compact-finite-differences``:
 4th/6th-order compact (Padé) first and second derivatives of 3-D scalar
 fields (second derivatives are beyond the reference's surface), batched

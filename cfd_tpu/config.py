@@ -13,8 +13,6 @@ import dataclasses
 import os
 from typing import Tuple
 
-import jax
-
 from .schemes import CompactScheme, get_scheme
 
 __all__ = ["Config"]
@@ -27,7 +25,7 @@ class Config:
     order: int = 4
     periodic: bool = False
     dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64'
-    method: str = "auto"  # 'auto' | 'matmul' | 'pallas' | 'pcr' | 'thomas' | 'stencil' | 'phipsi'
+    method: str = "auto"  # 'auto' | 'matmul' | 'pcr' | 'thomas' | 'stencil' | 'phipsi'
     mesh_shape: Tuple[int, int, int] = (1, 1, 1)
     grid_shape: Tuple[int, int, int] = (256, 256, 256)
     spacing: Tuple[float, float, float] = (1e-2, 1e-2, 1e-2)
@@ -36,11 +34,9 @@ class Config:
         if self.dtype not in ("float32", "bfloat16", "float64"):
             raise ValueError(f"bad dtype {self.dtype}")
         if self.method not in (
-            "auto", "matmul", "pallas", "pcr", "thomas", "stencil", "phipsi"
+            "auto", "matmul", "pcr", "thomas", "stencil", "phipsi"
         ):  # phipsi: the distributed-algorithm choice (parallel/phipsi.py)
             raise ValueError(f"bad method {self.method}")
-        if self.dtype == "float64" and self.method == "pallas":
-            raise ValueError("float64 requires method 'pcr' or 'thomas'")
         self.scheme  # validates order/periodic
 
     @property

@@ -2,7 +2,13 @@
 
 from .advection_diffusion import AdvectionDiffusion, Derivs
 from .burgers import Burgers
-from .fields import benchmark_field, sine_field, taylor_green, taylor_green_2d
+from .fields import (
+    benchmark_field,
+    broadband_field,
+    sine_field,
+    taylor_green,
+    taylor_green_2d,
+)
 from .navier_stokes import NavierStokes
 
 __all__ = [
@@ -11,6 +17,7 @@ __all__ = [
     "Derivs",
     "NavierStokes",
     "benchmark_field",
+    "broadband_field",
     "sine_field",
     "taylor_green",
     "taylor_green_2d",

@@ -49,20 +49,6 @@ class Derivs:
     dfdy: Callable
     dfdz: Callable
     laplacian: Callable = None
-    # f -> (fx, fy, fz); when set, models evaluate all three first
-    # derivatives through it (single-device: ops.gradient, whose auto path
-    # fuses dfdx+dfdy into one HBM read on TPU — ops/pallas_pair.py)
-    gradient: Callable = None
-    # (f, u, q, dt, nu, a, b) -> (q', f') or None: one fully-fused RK3
-    # substep (ops/fused_step.py — four kernel dispatches, no elementwise
-    # HBM passes). None return = unsupported for these shapes; the model
-    # falls back to the generic rhs/step form.
-    fused_substep: Callable = None
-    # (u, q, dt, nu, a, b) -> (q', u') or None: the 3-component vector
-    # momentum stage (ops/fused_step.make_fused_substep_vec — the merged
-    # adv_lap3 head reads each velocity component once). Burgers/NS prefer
-    # it over three scalar fused substeps when set.
-    fused_substep_vec: Callable = None
 
     @classmethod
     def single_device(
@@ -80,54 +66,24 @@ class Derivs:
             else spacing
         )
         lap = None
-        fused = None
-        fused_vec = None
         if second_derivative:
             from ..schemes import get_scheme
 
             d2 = get_scheme(scheme.order, scheme.periodic, derivative=2)
             lap = lambda f: single.laplacian(f, (dz, dy, dx), d2, method=method)
-            if method == "auto" and scheme.derivative_order == 1:
-                from ..ops.fused_step import (
-                    make_fused_substep,
-                    make_fused_substep_vec,
-                )
-
-                fused = make_fused_substep((dz, dy, dx), scheme, d2)
-                fused_vec = make_fused_substep_vec((dz, dy, dx), scheme, d2)
         return cls(
             dfdx=lambda f: single.dfdx(f, dx, scheme, method=method),
             dfdy=lambda f: single.dfdy(f, dy, scheme, method=method),
             dfdz=lambda f: single.dfdz(f, dz, scheme, method=method),
             laplacian=lap,
-            gradient=lambda f: single.gradient(
-                f, (dz, dy, dx), scheme, method=method
-            ),
-            fused_substep=fused,
-            fused_substep_vec=fused_vec,
         )
 
     @classmethod
-    def distributed(cls, solver, d2_solver=None, *, interpret: bool = False):
+    def distributed(cls, solver, d2_solver=None):
         """``d2_solver``: a DistributedCompactSolver over the same grid
         geometry with a derivative_order=2 scheme; its axis ops *are*
-        second derivatives, so their sum is the sharded Laplacian.
-
-        With a d2 solver the bundle also carries the distributed fused
-        substep (parallel/fused.py): on meshes that leave z whole the RK3
-        substep runs the round-4 shard-local kernel suite + the mega
-        kernel in one traced program — the substep itself decides support
-        at trace time and the model falls back to the generic step
-        otherwise. ``gradient`` fuses dfdx+dfdy into one shard-local pair
-        read on z-pencil meshes.
-        """
-        from ..parallel.fused import (
-            make_fused_substep_distributed,
-            make_gradient_distributed,
-        )
-
+        second derivatives, so their sum is the sharded Laplacian."""
         lap = None
-        fused = None
         if d2_solver is not None:
             if d2_solver.grid.scheme.derivative_order != 2:
                 raise ValueError(
@@ -136,17 +92,11 @@ class Derivs:
             lap = lambda f: (
                 d2_solver.dfdx(f) + d2_solver.dfdy(f) + d2_solver.dfdz(f)
             )
-            if solver.grid.scheme.derivative_order == 1:
-                fused = make_fused_substep_distributed(
-                    solver, d2_solver, interpret=interpret
-                )
         return cls(
             dfdx=solver.dfdx,
             dfdy=solver.dfdy,
             dfdz=solver.dfdz,
             laplacian=lap,
-            gradient=make_gradient_distributed(solver),
-            fused_substep=fused,
         )
 
 
@@ -160,10 +110,7 @@ class AdvectionDiffusion:
     def rhs(self, f, u) -> jax.Array:
         ux, uy, uz = u
         d = self.derivs
-        if d.gradient is not None:
-            fx, fy, fz = d.gradient(f)
-        else:
-            fx, fy, fz = d.dfdx(f), d.dfdy(f), d.dfdz(f)
+        fx, fy, fz = d.dfdx(f), d.dfdy(f), d.dfdz(f)
         adv = ux * fx + uy * fy + uz * fz
         if d.laplacian is not None:
             lap = d.laplacian(f)
@@ -175,20 +122,6 @@ class AdvectionDiffusion:
         """One low-storage RK3 step (Williamson coefficients)."""
         A = (0.0, -5.0 / 9.0, -153.0 / 128.0)
         B = (1.0 / 3.0, 15.0 / 16.0, 8.0 / 15.0)
-        fs = self.derivs.fused_substep
-        if fs is not None:
-            # fully-fused substeps (ops/fused_step.py): four kernel
-            # dispatches each, zero elementwise HBM passes. The first call
-            # doubles as the trace-time support probe (None = fall back).
-            out = fs(f, u, None, dt, self.nu, A[0], B[0])
-            if out is not None:
-                q, fc = out
-                n_rest = len(A) - 1
-                for i, (a, b) in enumerate(zip(A[1:], B[1:]), start=1):
-                    # last=True on the final substep: q' is dead, the
-                    # mega kernel elides its HBM write
-                    q, fc = fs(fc, u, q, dt, self.nu, a, b, last=i == n_rest)
-                return fc
         q = jnp.zeros_like(f)
         for a, b in zip(A, B):
             q = a * q + dt * self.rhs(f, u)

@@ -37,10 +37,7 @@ class Burgers:
         d = self.derivs
         out = []
         for comp in (ux, uy, uz):
-            if d.gradient is not None:
-                cx, cy, cz = d.gradient(comp)
-            else:
-                cx, cy, cz = d.dfdx(comp), d.dfdy(comp), d.dfdz(comp)
+            cx, cy, cz = d.dfdx(comp), d.dfdy(comp), d.dfdz(comp)
             adv = ux * cx + uy * cy + uz * cz
             if d.laplacian is not None:
                 lap = d.laplacian(comp)
@@ -52,40 +49,6 @@ class Burgers:
     def step(self, u, dt):
         A = (0.0, -5.0 / 9.0, -153.0 / 128.0)
         B = (1.0 / 3.0, 15.0 / 16.0, 8.0 / 15.0)
-        fsv = self.derivs.fused_substep_vec
-        if fsv is not None:
-            # vector momentum stage: all three components through the
-            # merged adv_lap3 head (each velocity read once per stage)
-            first = fsv(tuple(u), None, dt, self.nu, A[0], B[0])
-            if first is not None:
-                q, cur = first
-                for si in (1, 2):
-                    q, cur = fsv(
-                        cur, q, dt, self.nu, A[si], B[si], last=si == 2
-                    )
-                return tuple(cur)
-        fs = self.derivs.fused_substep
-        if fs is not None:
-            # the advecting field is frozen within a substep, so each
-            # component is exactly one fused advection-diffusion substep
-            # (ops/fused_step.py) against the substep-start velocity
-            first = fs(u[0], u, None, dt, self.nu, A[0], B[0])
-            if first is not None:
-                q = [None, None, None]
-                cur = list(u)
-                for si, (a, b) in enumerate(zip(A, B)):
-                    frozen = tuple(cur)
-                    for i in range(3):
-                        if si == 0 and i == 0:
-                            q[0], cur[0] = first
-                        else:
-                            # last=True on the final substep: q' is dead,
-                            # the mega kernel elides its HBM write
-                            q[i], cur[i] = fs(
-                                frozen[i], frozen, q[i], dt, self.nu, a, b,
-                                last=si == 2,
-                            )
-                return tuple(cur)
         q = tuple(jnp.zeros_like(c) for c in u)
         for a, b in zip(A, B):
             r = self.rhs(u)

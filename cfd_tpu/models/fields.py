@@ -12,7 +12,13 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-__all__ = ["benchmark_field", "taylor_green", "taylor_green_2d", "sine_field"]
+__all__ = [
+    "benchmark_field",
+    "broadband_field",
+    "taylor_green",
+    "taylor_green_2d",
+    "sine_field",
+]
 
 
 def _meshgrid3(z, y, x):
@@ -75,3 +81,21 @@ def sine_field(z, y, x, k: float = 1.0):
     Z, Y, X = _meshgrid3(z, y, x)
     f = jnp.sin(k * X) + 0 * Z + 0 * Y
     return f, k * jnp.cos(k * X) + 0 * f
+
+
+def broadband_field(n: int, seed: int = 0, dtype=jnp.float32):
+    """Seeded random (n, n, n) field with a broad spectrum, made on device.
+
+    White noise under a 1 / (1 + (|k| / k0)^2) envelope, k0 = n / 8: every
+    wavenumber up to Nyquist carries energy, so a derivative check sees the
+    whole transfer function, not one mode. Normalised to max |f| = 1.
+    """
+    import jax
+
+    w = jax.random.normal(jax.random.PRNGKey(seed), (n, n, n), dtype)
+    k = jnp.fft.fftfreq(n, 1.0 / n).astype(dtype)
+    kr = jnp.fft.rfftfreq(n, 1.0 / n).astype(dtype)
+    k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + kr[None, None, :] ** 2
+    env = 1.0 / (1.0 + k2 / (n / 8.0) ** 2)
+    f = jnp.fft.irfftn(jnp.fft.rfftn(w) * env, s=(n, n, n)).astype(dtype)
+    return f / jnp.max(jnp.abs(f))

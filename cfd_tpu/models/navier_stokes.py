@@ -4,9 +4,8 @@
 
 advanced by a fractional-step (pressure projection) method: each
 Williamson RK3 stage advances the momentum equation without the pressure
-term — exactly one viscous Burgers stage per component, so the fully-fused
-two-dispatch substep machinery (ops/fused_step.py) is reused unchanged —
-then the stage velocity is made discretely divergence-free by the
+term — exactly one viscous Burgers stage per component — then the stage
+velocity is made discretely divergence-free by the
 spectral Helmholtz projection (ops/poisson.project). Because periodic
 compact operators are circulant, the projection annihilates *the compact
 divergence this package computes* to rounding, not to truncation — after
@@ -24,11 +23,11 @@ solver. The model family is beyond the reference's surface; every spatial
 operator in it is this package's compact one.
 
 Works single-device out of the box, and distributed via
-``NavierStokes.distributed(grid)``: the momentum stages ride the
-round-4 distributed kernel suite (the fused substep on z-unsharded
-meshes, parallel/fused.py), and the projection runs the pencil-FFT
-sharded Poisson (parallel/spectral.py — all_to_all transposes on ICI,
-no GSPMD gathers). ``divergence(step(u))`` is machine zero in both modes.
+``NavierStokes.distributed(grid)``: the momentum stages run the
+distributed compact solver (parallel/compact.py), and the projection runs
+the pencil-FFT sharded Poisson (parallel/spectral.py — all_to_all
+transposes, no GSPMD gathers). ``divergence(step(u))`` is machine zero in
+both modes.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ class NavierStokes:
     """RK3 fractional-step solver for incompressible Navier–Stokes.
 
     ``derivs`` supplies the momentum-stage operators (advection gradient,
-    viscous Laplacian, optionally the fused substep); ``scheme`` is the
+    viscous Laplacian); ``scheme`` is the
     periodic derivative_order=1 scheme whose divergence the projection
     annihilates; ``spacing`` is (dz, dy, dx).
     """
@@ -85,7 +84,7 @@ class NavierStokes:
         method: str = "auto",
     ) -> "NavierStokes":
         """Build with the single-device operator bundle (compact-d2
-        viscous Laplacian + the fused substeps where supported)."""
+        viscous Laplacian)."""
         d = Derivs.single_device(
             spacing, scheme, method=method, second_derivative=True
         )
@@ -103,12 +102,10 @@ class NavierStokes:
         nu: float = 1e-3,
         *,
         method: str = "auto",
-        interpret: bool = False,
     ) -> "NavierStokes":
         """Build over a ``parallel.Grid`` (periodic d1 scheme): momentum
-        stages through the distributed kernel suite (fused substep on
-        z-unsharded meshes), projection/pressure through the pencil-FFT
-        sharded spectral solves."""
+        stages through the distributed compact solver, projection/pressure
+        through the pencil-FFT sharded spectral solves."""
         import dataclasses as _dc
 
         from ..parallel.compact import DistributedCompactSolver
@@ -122,9 +119,9 @@ class NavierStokes:
             )
         d2 = get_scheme(scheme.order, True, 2)
         g2 = _dc.replace(grid, scheme=d2)
-        s1 = DistributedCompactSolver(grid, method=method, interpret=interpret)
-        s2 = DistributedCompactSolver(g2, method=method, interpret=interpret)
-        derivs = Derivs.distributed(s1, s2, interpret=interpret)
+        s1 = DistributedCompactSolver(grid, method=method)
+        s2 = DistributedCompactSolver(g2, method=method)
+        derivs = Derivs.distributed(s1, s2)
         return cls(
             derivs=derivs,
             spacing=tuple(grid.spacing),
@@ -163,10 +160,7 @@ class NavierStokes:
         d = self.derivs
         adv = []
         for comp in (ux, uy, uz):
-            if d.gradient is not None:
-                cx, cy, cz = d.gradient(comp)
-            else:
-                cx, cy, cz = d.dfdx(comp), d.dfdy(comp), d.dfdz(comp)
+            cx, cy, cz = d.dfdx(comp), d.dfdy(comp), d.dfdz(comp)
             adv.append(ux * cx + uy * cy + uz * cz)
         rhs = -self.divergence(tuple(adv))
         rhs = rhs - jnp.mean(rhs)
@@ -182,8 +176,8 @@ class NavierStokes:
     def step(self, u, dt):
         """One RK3 step: three (momentum stage -> projection) pairs.
 
-        The momentum stage is exactly ``Burgers.step``'s stage body (the
-        fused-substep route included); projecting the stage velocity is
+        The momentum stage is exactly ``Burgers.step``'s stage body;
+        projecting the stage velocity is
         the fractional-step pressure correction — projection is linear
         and idempotent, so the projected field feeds the next stage's
         advection operator, which is what keeps the splitting error at
@@ -191,37 +185,6 @@ class NavierStokes:
         """
         A = (0.0, -5.0 / 9.0, -153.0 / 128.0)
         B = (1.0 / 3.0, 15.0 / 16.0, 8.0 / 15.0)
-        fsv = self.derivs.fused_substep_vec
-        if fsv is not None:
-            # vector momentum stage (merged adv_lap3 head) + projection
-            first = fsv(tuple(u), None, dt, self.nu, A[0], B[0])
-            if first is not None:
-                q, cur = first
-                cur = tuple(self.project(cur))
-                for si in (1, 2):
-                    q, cur = fsv(
-                        cur, q, dt, self.nu, A[si], B[si], last=si == 2
-                    )
-                    cur = tuple(self.project(cur))
-                return cur
-        fs = self.derivs.fused_substep
-        if fs is not None:
-            first = fs(u[0], u, None, dt, self.nu, A[0], B[0])
-            if first is not None:
-                q = [None, None, None]
-                cur = list(u)
-                for si, (a, b) in enumerate(zip(A, B)):
-                    frozen = tuple(cur)
-                    for i in range(3):
-                        if si == 0 and i == 0:
-                            q[0], cur[0] = first
-                        else:
-                            q[i], cur[i] = fs(
-                                frozen[i], frozen, q[i], dt, self.nu, a, b,
-                                last=si == 2,
-                            )
-                    cur = list(self.project(tuple(cur)))
-                return tuple(cur)
         q = tuple(jnp.zeros_like(c) for c in u)
         rhs = self._burgers().rhs
         for a, b in zip(A, B):

@@ -40,79 +40,103 @@ __all__ = [
     "filter_field",
 ]
 
-_METHODS = ("auto", "pcr", "thomas", "pallas", "matmul", "stencil")
+_METHODS = ("auto", "pcr", "thomas", "matmul", "stencil")
+
+AXIS_CLASSES = ("minor", "second_minor", "leading")
+
+# Line lengths the GPU routes were measured at. Shorter lines take the
+# dense operator (one small matmul, O(n) FLOPs per point).
+_GPU_LINES = (256, 512)
+
+# Route of method='auto' on the GPU for non-periodic lines, keyed by (axis
+# class, dtype name, derivative order; 0 is a filter). Each value holds the
+# route for lines of 256 to 511 points and the route for 512 or more: the
+# fastest route that passed the float64-oracle gate on an H100 at 256^3
+# and at 512^3 (benchmarks/route_table.py; the measured table and the card
+# are in CHANGES.md). bf16 always takes the single-pass dense operator on
+# the tensor cores.
+_GPU_ROUTES = {
+    ("minor", "float32", 0): ("matmul", "stencil"),
+    ("minor", "float32", 1): ("stencil", "stencil"),
+    ("minor", "float32", 2): ("stencil", "stencil"),
+    ("second_minor", "float32", 0): ("matmul", "stencil"),
+    ("second_minor", "float32", 1): ("stencil", "stencil"),
+    ("second_minor", "float32", 2): ("stencil", "stencil"),
+    ("leading", "float32", 0): ("matmul", "matmul"),
+    ("leading", "float32", 1): ("stencil", "stencil"),
+    ("leading", "float32", 2): ("stencil", "stencil"),
+    ("minor", "float64", 0): ("matmul", "matmul"),
+    ("minor", "float64", 1): ("matmul", "stencil"),
+    ("minor", "float64", 2): ("stencil", "stencil"),
+    ("second_minor", "float64", 0): ("matmul", "matmul"),
+    ("second_minor", "float64", 1): ("matmul", "matmul"),
+    ("second_minor", "float64", 2): ("stencil", "stencil"),
+    ("leading", "float64", 0): ("matmul", "matmul"),
+    ("leading", "float64", 1): ("matmul", "matmul"),
+    ("leading", "float64", 2): ("matmul", "matmul"),
+    **{
+        (axis, "bfloat16", order): ("matmul", "matmul")
+        for axis in AXIS_CLASSES
+        for order in (0, 1, 2)
+    },
+}
+
+# Half-width of the widest explicit stencil that won its key on the card:
+# the f32 alpha=0.45 filter (73 taps). A filter's stencil widens without
+# bound as its alpha nears 1/2; at alpha=0.48 and 0.49 it ran 9-39x
+# slower than the dense operator on the H100 (CHANGES.md), so wider
+# stencils take the dense operator.
+_GPU_STENCIL_MAX_BW = 36
+
+
+def axis_class(ndim: int, axis: int) -> str:
+    """'minor' (last axis), 'second_minor', or 'leading' (any deeper axis)."""
+    depth = ndim - 1 - axis % ndim
+    return AXIS_CLASSES[min(depth, 2)]
 
 
 def resolve_method(
     method: str,
     dtype,
     n: int,
-    minor_axis: bool = False,
-    second_minor: bool = False,
-    derivative_order: int = 1,
-    leading: bool = False,
+    *,
+    platform: str,
+    axis_class: str = "leading",
+    scheme: CompactScheme = SCHEME4,
 ) -> str:
-    """Resolve 'auto' to the fastest backend for this dtype/backend/size.
+    """Resolve 'auto' to a concrete backend; other methods pass through.
 
-    On TPU (measured, v5e): along the minor (lane) axis the fused lane
-    kernel wins wherever it applies (63-70 vs the dense MXU operator's
-    48-54 Gpt/s at 256^3, 1.8x at n=512 — ops/pallas_lane.py). Along the
-    second-minor axis (dfdy) the sublane kernel wins (65 vs 50 Gpt/s at
-    256^3, 81 vs 32 at n=512 — its blocks are contiguous HBM slabs there,
-    ops/pallas_sublane.py). Along the *leading* axis (dfdz on 3-D fields)
-    the round-3 substructured native-layout kernel wins (75 vs 45 Gpt/s at
-    256^3 — ops/pallas_leading.py); on other deep axes (4-D fields) the
-    dense-operator MXU path stays ahead up to ``_MATMUL_BLOCK``-length
-    lines; past that the sublane kernel's O(128) MACs/point win. float64
-    and CPU take the XLA-level PCR path.
+    ``platform`` is ``jax.default_backend()`` of the caller. The CPU takes
+    the portable ``pcr`` path for every dtype. The GPU looks non-periodic
+    lines up in the measured ``_GPU_ROUTES`` table by axis class, dtype,
+    the scheme's derivative order and line length. Periodic lines and lines
+    shorter than the measured range take ``matmul``: the periodic explicit
+    stencil shifts cyclically, and inside a whole Navier–Stokes step on the
+    H100 it ran 7x slower than the dense operator (CHANGES.md). So does a
+    ``stencil`` entry whose stencil for this scheme is wider than any that
+    won on the card, or too wide for the line. This is the only place in the
+    package where the platform selects a route.
     """
+    if method not in _METHODS:
+        raise ValueError(f"unknown solver method {method!r}; expected {_METHODS}")
     if method != "auto":
         return method
-    if dtype == jnp.float64 or jax.default_backend() == "cpu":
+    if platform == "cpu":
         return "pcr"
-    if leading and dtype == jnp.float32:
-        # f32 leading axis: the native-3D substructured kernel wins at every
-        # derivative order (measured interleaved vs matmul at 256^3: d1 75
-        # vs 45, d2 73 vs 46, filter 64 vs 46 Gpt/s; at 512^3 d1 39 vs 23).
-        # bf16 stays on the single-pass matmul (~10x faster there).
-        from .pallas_leading import leading_supported
-
-        if leading_supported(None, n, dtype):
-            return "pallas"
-    if derivative_order != 1:
-        # d2/filters: the lane/sublane *fold* form is table-generic and wins
-        # where measured (256^3 f32, same-run interleaved): d2 1.9x/1.3x the
-        # dense matmul on minor/second-minor axes with equal-or-better
-        # accuracy; filters 1.4x on the second-minor axis, but LOSE on the
-        # minor axis (0.272 vs 0.228 ms device — the width-3 filter stencil
-        # triples the per-block edge-lane FMAs, which are exposed VPU time
-        # in the lane orientation, while the matmul runs at auto-HIGH
-        # precision for order 0: 73.5 Gpt/s, filter_v5e.json). Deeper axes
-        # and long lines take the dense/blocked MXU operator.
-        from .pallas_lane import FOLD_MAX, lane_supported
-
-        # n == 128 single-block lines stay on the dense matmul for 'auto':
-        # the nb=1 kernel route exists (for the fused pipelines at 128-point
-        # shards) but does the same 128 MACs/point as the dense operator
-        fold_ok = (
-            dtype in (jnp.float32, jnp.bfloat16)
-            and 256 <= n <= FOLD_MAX
-            and lane_supported(None, n, dtype)
-        )
-        if fold_ok and (second_minor or (minor_axis and derivative_order == 2)):
-            return "pallas"
+    if platform != "gpu":
+        raise ValueError(f"no measured routes for platform {platform!r}")
+    if scheme.periodic or n < _GPU_LINES[0]:
         return "matmul"
-    if dtype == jnp.float32:
-        # f32 only: bf16 fields are fastest through the single-pass MXU
-        # matmul (325 vs 91 Gpt/s measured at 256^3 — the fused kernels'
-        # f32-internal HIGHEST dots are a pure tax there)
-        from .pallas_lane import lane_supported
-
-        if minor_axis and n >= 256 and lane_supported(None, n, dtype):
-            return "pallas"
-        if second_minor and n >= 256 and lane_supported(None, n, dtype):
-            return "pallas"
-    return "matmul" if n <= _MATMUL_BLOCK else "pallas"
+    short, long = _GPU_ROUTES[
+        (axis_class, jnp.dtype(dtype).name, scheme.derivative_order)
+    ]
+    route = long if n >= _GPU_LINES[1] else short
+    if route == "stencil":
+        c, _, _, m = banded_operator(scheme, n, _stencil_tol(dtype))
+        bw = (len(c) - 1) // 2
+        if bw > _GPU_STENCIL_MAX_BW or n < 2 * (m + bw):
+            return "matmul"
+    return route
 
 
 # Block length for the blocked dense path; lines longer than this are split
@@ -146,8 +170,8 @@ def _pick_blocks(n: int) -> int:
     warnings.warn(
         f"line length {n} has no divisor in [64, {_MATMUL_BLOCK}]; the "
         "'matmul' backend falls back to the full dense (n, n) operator — "
-        "O(n) FLOPs/point and an O(n^2) table. Consider method='pcr' (any "
-        "n) or padding to a multiple of 128 for the fused lane kernel.",
+        "O(n) FLOPs/point and an O(n^2) table. Consider method='pcr' or "
+        "method='stencil' (any n).",
         stacklevel=3,
     )
     return 1
@@ -162,7 +186,7 @@ def _blocked_matmul_derivative(f, dx, scheme, axis, precision):
 
     The same math as the distributed solve (parallel/compact.py) with the
     "shards" being contiguous blocks of the local line: per-block dense
-    inverses (batched MXU matmul), a (2nb, 2nb) reduced interface matmul,
+    inverses (a batched matmul), a (2nb, 2nb) reduced interface matmul,
     and a rank-2 update. FLOPs/point stay O(block) for any n.
     """
     n = f.shape[axis]
@@ -232,12 +256,10 @@ def _blocked_matmul_derivative(f, dx, scheme, axis, precision):
 def dense_operator(scheme: CompactScheme, n: int):
     """Dense derivative operator M = T^{-1} B (float64 numpy, (n, n)).
 
-    The compact derivative is linear in f: f' = T^{-1} B f / dx. For line
-    lengths up to a few thousand, applying M as a single matmul puts the
-    work on the MXU with exactly one read of f and one write of f' — the
-    most TPU-native formulation of the scheme (the systolic array trades
-    n extra flops/point for zero recurrences and zero layout changes).
-    Precomputed once per (scheme, n) in float64.
+    The compact derivative is linear in f: f' = T^{-1} B f / dx. Applying M
+    as one matmul reads f once and writes f' once, with no recurrence and
+    no layout change, at the price of O(n) FLOPs per point. Precomputed
+    once per (scheme, n) in float64.
     """
     from ..schemes import rhs_matrix
 
@@ -283,16 +305,22 @@ def banded_operator(scheme: CompactScheme, n: int, tol: float = 1e-8):
     return c, E_top, E_bot, m
 
 
-def _stencil_derivative(f, dx, scheme, axis, tol=1e-8):
+def _stencil_tol(dtype) -> float:
+    """Relative truncation of the explicit stencil: below f32 roundoff for
+    f32 and bf16 fields, below the 1e-10 oracle gate for float64 ones."""
+    return 1e-13 if dtype == jnp.float64 else 1e-8
+
+
+def _stencil_derivative(f, dx, scheme, axis):
     """Explicit wide-stencil evaluation of the compact derivative.
 
-    O(bandwidth) fused multiply-adds per point at f32-exact accuracy
-    (truncation below f32 roundoff), independent of line length — the
-    bandwidth-optimal path along axes where shifts are cheap."""
+    O(bandwidth) fused multiply-adds per point with truncation below the
+    field dtype's roundoff, independent of line length — one loop fusion
+    along any axis."""
     import jax.lax as lax
 
     n = f.shape[axis]
-    c, E_top, E_bot, m = banded_operator(scheme, n, tol)
+    c, E_top, E_bot, m = banded_operator(scheme, n, _stencil_tol(f.dtype))
     bw = (len(c) - 1) // 2
     if n < 2 * (m + bw):
         raise ValueError(f"line length {n} too short for stencil method")
@@ -320,8 +348,8 @@ def _stencil_derivative(f, dx, scheme, axis, tol=1e-8):
             pad[axis] = (-off, 0)
             piece = jnp.pad(lax.slice_in_dim(f, 0, n + off, axis=axis), pad)
         out = out + jnp.asarray(ck, dtype) * piece
-    # dense edge corrections (small matmuls; HIGHEST so f32 edges stay
-    # f32-accurate on the MXU — measured 0.05 abs error without it)
+    # dense edge corrections (small matmuls; HIGHEST so f32 edges are not
+    # contracted in TF32)
     prec = jax.lax.Precision.HIGHEST if dtype != jnp.bfloat16 else None
     top = jnp.tensordot(
         jnp.asarray(E_top, dtype),
@@ -355,7 +383,7 @@ def line_factors(
 
     Cached per (scheme, n, method, block position); the numpy tables become
     trace-time constants, so jitted derivative calls carry zero setup cost —
-    the TPU analogue of the reference's per-solver coefficient precompute
+    the counterpart of the reference's per-solver coefficient precompute
     (templated/near_toeplitz.py:109-184) without its host round trips.
     """
     core_method = "thomas" if method == "thomas" else "pcr"
@@ -371,12 +399,8 @@ def line_factors(
     return tridiag.factor(*bands, method=core_method)
 
 
-def _derivative_lines(f, dx, scheme, method, interpret=False):
-    """Derivative along axis 0 of ``f`` (n, *batch)."""
-    if method == "pallas":
-        from .pallas_fused import fused_derivative_lines
-
-        return fused_derivative_lines(f, dx, scheme, interpret=interpret)
+def _derivative_lines(f, dx, scheme, method):
+    """Derivative along axis 0 of ``f`` (n, *batch) by 'pcr' or 'thomas'."""
     rhs = compact_rhs(f, dx, scheme)
     fac = line_factors(scheme, f.shape[0], method)
     return tridiag.solve(fac, rhs)
@@ -389,78 +413,32 @@ def derivative(
     *,
     axis: int = -1,
     method: str = "auto",
-    matmul_precision: str | None = None,
-    interpret: bool = False,
 ) -> jax.Array:
     """Compact derivative of ``f`` along ``axis`` with spacing ``dx``.
 
     The scheme's ``derivative_order`` selects first (default schemes) or
-    second derivative (``get_scheme(..., derivative=2)`` / SCHEME*_D2).
+    second derivative (``get_scheme(..., derivative=2)`` / SCHEME*_D2), or
+    a filter (``derivative_order=0``, ``schemes.get_filter``).
 
-    ``matmul_precision`` (None = auto) sets the MXU pass count of the
-    'matmul' backend for f32 fields: derivatives need 'highest' (bf16x6 —
-    the O(1/dx**order) scale amplifies rounding), but order-0 filters have
-    no spacing amplification, so auto drops them to 'high' (bf16x3): 1.6x
-    faster at 256^3 (0.228 vs 0.360 ms device, 73.5 Gpt/s — the HIGHEST
-    form is MXU-bound, not HBM-bound) at ~3e-5 relative error against the
-    f64 oracle instead of ~6e-7 (benchmarks/results/filter_v5e.json).
-    Pass 'highest' explicitly for filters at f32 roundoff.
-
-    ``method`` selects the backend: 'auto' (default; picks per dtype/backend/
-    axis/size, see ``resolve_method``), 'matmul' (dense operator on the MXU),
-    'pallas' (fused TPU kernels, f32/bf16: the transpose-free lane kernel
-    along the last axis — ops/pallas_lane.py — and the RHS+Thomas kernel
-    elsewhere), 'pcr' (axis-aware table-driven parallel cyclic reduction at
-    the XLA level — any backend, any dtype) or 'thomas' (scan-based LU).
+    ``method`` selects the backend: 'auto' (default; picks per platform,
+    dtype, axis and line length, see ``resolve_method``), 'stencil' (the
+    implicit scheme as an explicit wide stencil, exact to below the dtype's
+    roundoff), 'matmul' (the dense operator, blocked above 512 points),
+    'pcr' (table-driven parallel cyclic reduction along the axis) or
+    'thomas' (scan-based LU). f32 contractions run at HIGHEST precision;
+    bf16 fields take a single bf16 pass.
     """
-    if method not in _METHODS:
-        raise ValueError(f"unknown solver method {method!r}; expected {_METHODS}")
     axis = axis % f.ndim
-    minor = axis == f.ndim - 1
     method = resolve_method(
         method,
         f.dtype,
         f.shape[axis],
-        minor_axis=minor,
-        second_minor=axis == f.ndim - 2,
-        derivative_order=scheme.derivative_order,
-        # 2-D (n, B) fields keep the sublane route (axis 0 is second-minor
-        # there, a contiguous fast case); the leading kernel claims true
-        # 3-D+ leading axes, where every alternative pays a relayout
-        leading=axis == 0 and f.ndim >= 3,
+        platform=jax.default_backend(),
+        axis_class=axis_class(f.ndim, axis),
+        scheme=scheme,
     )
-    if method == "pallas" and minor:
-        from .pallas_lane import lane_derivative, lane_supported
-
-        if lane_supported(scheme, f.shape[axis], f.dtype):
-            # transpose-free lane-axis kernel: one HBM read + one write
-            return lane_derivative(f, dx, scheme, interpret=interpret)
-    if method == "pallas" and not minor:
-        if axis == 0 and f.ndim >= 3:
-            from .pallas_leading import leading_derivative, leading_supported
-
-            if leading_supported(scheme, f.shape[0], f.dtype):
-                # leading-axis substructured kernel: native-3D blocks, zero
-                # relayouts (the transpose-free dfdz)
-                return leading_derivative(f, dx, scheme, interpret=interpret)
-        from .pallas_sublane import sublane_derivative, sublane_supported
-
-        if sublane_supported(scheme, f.shape[axis], f.dtype):
-            # transpose-free sublane-axis kernel: trailing dims merge into
-            # the lane dimension, lines run along sublanes
-            return sublane_derivative(
-                f, dx, scheme, axis=axis, interpret=interpret
-            )
     if method == "matmul":
-        # MXU passes for f32 inputs: 'highest' (bf16x6, ~1e-6 abs err on
-        # smooth fields) for derivatives; 'high' (bf16x3) for order-0
-        # filters (see the docstring — no 1/dx amplification, half the MXU
-        # cost). bf16 inputs always take the fast single pass.
-        if matmul_precision is None:
-            matmul_precision = (
-                "high" if scheme.derivative_order == 0 else "highest"
-            )
-        prec = matmul_precision if f.dtype != jnp.bfloat16 else None
+        prec = "highest" if f.dtype != jnp.bfloat16 else None
         n = f.shape[axis]
         if n > _MATMUL_BLOCK:
             # long lines: blocked substructuring keeps FLOPs/point O(block)
@@ -471,7 +449,12 @@ def derivative(
         out = jnp.moveaxis(out, -1, axis)
         return out / jnp.asarray(dx, f.dtype) ** scheme.derivative_order
     if method == "stencil":
-        return _stencil_derivative(f, dx, scheme, axis)
+        # materialize the result: left free, XLA fuses the wide stencil into
+        # its consumers and recomputes it per use (an advection-diffusion
+        # step on the H100 ran 2.3x slower without the barrier, CHANGES.md)
+        return jax.lax.optimization_barrier(
+            _stencil_derivative(f, dx, scheme, axis)
+        )
     if method == "pcr":
         # fully axis-aware: stencil and PCR shifts run in the field's native
         # layout — no transposes, every op is a fused shifted multiply-add
@@ -573,27 +556,9 @@ def gradient(
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """(df/dx, df/dy, df/dz) of a scalar field ``[..., nz, ny, nx]``.
 
-    ``spacing`` is a scalar or (dz, dy, dx). On TPU, f32 'auto' runs
-    the fused two-axis pair kernel for (dfdx, dfdy) — one HBM read of f
-    instead of two (ops/pallas_pair.py; measured 3-10% on the full
-    3-derivative pipeline at 256^3 — the single kernels already run past
-    the DMA floor, so read-sharing buys modest, not 25%, wall-clock).
-    bf16 fields skip the pair kernel: its f32-internal HIGHEST dots are a
-    pure tax there, and the single-pass bf16 matmul path is ~3.5x faster
-    per op than what the one saved read could recover.
+    ``spacing`` is a scalar or (dz, dy, dx).
     """
     dz, dy, dx = _spacings3(spacing)
-    if (
-        method == "auto"
-        and f.ndim >= 3
-        and f.dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-    ):
-        from .pallas_pair import gradient_pair, pair_supported
-
-        if pair_supported(scheme, f.shape[-2], f.shape[-1], f.dtype):
-            gx, gy = gradient_pair(f, dy, dx, scheme)
-            return (gx, gy, dfdz(f, dz, scheme, method=method))
     return (
         dfdx(f, dx, scheme, method=method),
         dfdy(f, dy, scheme, method=method),
@@ -608,27 +573,9 @@ def divergence(
     *,
     method: str = "auto",
 ) -> jax.Array:
-    """div(u) for a 3-component vector field (ux, uy, uz).
-
-    On TPU, f32 'auto' with a periodic scheme runs the fused streaming
-    route (ops/pallas_vec.divergence_fused): one kernel emits
-    ``B_z uz + T_z (d1x ux + d1y uy)`` from a single read of each
-    component, and one leading z-solve turns it into div(u) — 6 HBM
-    passes / 2 dispatches where the unfused form costs ~10 / 4.
-    """
+    """div(u) for a 3-component vector field (ux, uy, uz)."""
     ux, uy, uz = u
     dz, dy, dx = _spacings3(spacing)
-    if (
-        method == "auto"
-        and ux.ndim == 3
-        and ux.shape == uy.shape == uz.shape
-        and ux.dtype == uy.dtype == uz.dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-    ):
-        from .pallas_vec import div_fused_supported, divergence_fused
-
-        if div_fused_supported(scheme, *ux.shape, ux.dtype):
-            return divergence_fused((ux, uy, uz), dz, dy, dx, scheme)
     return (
         dfdx(ux, dx, scheme, method=method)
         + dfdy(uy, dy, scheme, method=method)
@@ -643,44 +590,11 @@ def curl(
     *,
     method: str = "auto",
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """curl(u) for a 3-component vector field (ux, uy, uz).
-
-    On TPU, f32 'auto' with a periodic scheme runs the fused streaming
-    route (ops/pallas_vec.curl_fused): one kernel reads each component
-    once and emits wz plus the two change-of-variables right-hand sides
-    whose leading z-solves are wx and wy — 10 HBM passes / 3 dispatches
-    where the unfused form costs ~20 / 7. Otherwise the z-component's two
-    derivatives (duz/dx, duz/dy) still share one read of uz through the
-    pair kernel (bf16 routes through the faster single-pass matmul ops
-    instead — see ``gradient``).
-    """
+    """curl(u) for a 3-component vector field (ux, uy, uz)."""
     ux, uy, uz = u
     dz, dy, dx = _spacings3(spacing)
-    if (
-        method == "auto"
-        and ux.ndim == 3
-        and ux.shape == uy.shape == uz.shape
-        and ux.dtype == uy.dtype == uz.dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-    ):
-        from .pallas_vec import curl_fused, curl_fused_supported
-
-        if curl_fused_supported(scheme, *ux.shape, ux.dtype):
-            return curl_fused((ux, uy, uz), dz, dy, dx, scheme)
-    duz_dx = duz_dy = None
-    if (
-        method == "auto"
-        and uz.ndim >= 3
-        and uz.dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-    ):
-        from .pallas_pair import gradient_pair, pair_supported
-
-        if pair_supported(scheme, uz.shape[-2], uz.shape[-1], uz.dtype):
-            duz_dx, duz_dy = gradient_pair(uz, dy, dx, scheme)
-    if duz_dx is None:
-        duz_dy = dfdy(uz, dy, scheme, method=method)
-        duz_dx = dfdx(uz, dx, scheme, method=method)
+    duz_dy = dfdy(uz, dy, scheme, method=method)
+    duz_dx = dfdx(uz, dx, scheme, method=method)
     duy_dz = dfdz(uy, dz, scheme, method=method)
     dux_dz = dfdz(ux, dz, scheme, method=method)
     duy_dx = dfdx(uy, dx, scheme, method=method)
@@ -701,44 +615,9 @@ def laplacian(
     (and better high-wavenumber resolution) than the repeated-first-
     derivative form div(grad(f)). ``scheme`` must be a derivative_order=2
     scheme; defaults to the 4th-order Padé d² (``SCHEME4_D2``).
-
-    On TPU, f32 'auto' computes d2x + d2y through the fused pair-sum
-    kernel (ops/pallas_pair.d2_pair_sum: one HBM read and one write for
-    both axes plus their sum), leaving only d2fdz2 as a second op —
-    2 reads + 2 writes total where the unfused form costs 3 + 3 plus add
-    passes.
     """
     scheme = _d2_scheme(scheme if scheme is not None else SCHEME4_D2)
     dz, dy, dx = _spacings3(spacing)
-    if (
-        method == "auto"
-        and f.ndim >= 3
-        and f.dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-    ):
-        from .pallas_pair import d2_pair_sum, d2_sum_supported
-
-        if d2_sum_supported(scheme, f.shape[-2], f.shape[-1], f.dtype):
-            from .pallas_leading import (
-                leading_derivative,
-                leading_solve,
-                leading_supported,
-            )
-
-            if f.ndim == 3 and leading_supported(scheme, f.shape[0], f.dtype):
-                from .pallas_lap import lap_rhs, lap_rhs_supported
-
-                if lap_rhs_supported(scheme, *f.shape, f.dtype):
-                    # four HBM passes: one streaming kernel emits
-                    # r = B_z f + T_z (d2x + d2y), one solve-only pass
-                    # turns it into the Laplacian (T y = B f + T s has
-                    # the solution y = d2z + s) — ops/pallas_lap.py
-                    return leading_solve(lap_rhs(f, dz, dy, dx, scheme), scheme)
-                # five-pass fallback: d2z with the xy sum as accumuland
-                s = d2_pair_sum(f, dy, dx, scheme)
-                return leading_derivative(f, dz, scheme, acc=s)
-            s = d2_pair_sum(f, dy, dx, scheme)
-            return s + d2fdz2(f, dz, scheme, method=method)
     return (
         d2fdx2(f, dx, scheme, method=method)
         + d2fdy2(f, dy, scheme, method=method)

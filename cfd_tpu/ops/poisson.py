@@ -21,8 +21,8 @@ the compact schemes themselves*:
 
 Eigenvalue tables are built once per (scheme, shape, spacing) in float64
 numpy at trace time — the same precompute-at-setup discipline as every
-other backend in this package. The FFTs are XLA's (batched 1-D passes on
-TPU); everything is jit/grad-compatible.
+other backend in this package. The FFTs are XLA's (cuFFT on the GPU);
+everything is jit/grad-compatible.
 
 Periodic schemes only: non-periodic closures break circulant structure,
 so there is no exact DFT diagonalization — those geometries keep
@@ -37,7 +37,6 @@ run compact schemes *for*.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -131,302 +130,6 @@ def _fft_dtypes(dtype):
     return jnp.float32, jnp.complex64
 
 
-# ---------------------------------------------------------------------------
-# matmul-DFT transforms: the spectral round trip as MXU tensordots
-# ---------------------------------------------------------------------------
-#
-# XLA's TPU FFT underuses the hardware: at 256^3 f32 the rfftn+irfftn pair
-# measures 4.9 ms while the same transforms as dense DFT matmuls (HIGHEST
-# precision, tables built in float64) run 3.4 ms (benchmarks/diag_fft.py) —
-# the MXU turns the O(n) extra MACs/point into a non-issue and the memory
-# pattern becomes plain matmul tiles instead of FFT butterflies. Rounding
-# is O(sqrt(n)) eps relative to the spectral scale, the same class as the
-# f32 FFT's own; the f64 path keeps jnp.fft (exactness for oracle tests).
-# Tables are (n, n) float32 — 256 KB at n=256, cached per axis length.
-
-
-@functools.lru_cache(maxsize=64)
-def _dft_tables(n: int):
-    """(Cx, Sx, Wc, Ws, Wci, Wsi, Cxi, Sxi) float32, built in float64.
-
-    Forward kernel exp(-i th): r2c rows (Cx, Sx) of shape (n//2+1, n) and
-    c2c (Wc, Ws) of (n, n); inverse c2c (Wci, Wsi) = conj/n; c2r rows
-    (Cxi, Sxi) of (n, n//2+1) with the hermitian doubling folded in.
-    """
-    k = np.arange(n)
-    nf = n // 2 + 1
-    th = 2.0 * np.pi * np.outer(k, k) / n
-    Wc = np.cos(th)
-    Ws = -np.sin(th)
-    thr = 2.0 * np.pi * np.outer(np.arange(nf), k) / n
-    Cx = np.cos(thr)
-    Sx = -np.sin(thr)
-    w2 = np.full(nf, 2.0)
-    w2[0] = 1.0
-    if n % 2 == 0:
-        w2[-1] = 1.0
-    thi = 2.0 * np.pi * np.outer(k, np.arange(nf)) / n
-    Cxi = np.cos(thi) * w2 / n
-    Sxi = np.sin(thi) * w2 / n
-    f32 = lambda a: np.asarray(a, np.float32)
-    return (
-        f32(Cx),
-        f32(Sx),
-        f32(Wc),
-        f32(Ws),
-        f32(Wc / n),
-        f32(-Ws / n),
-        f32(Cxi),
-        f32(Sxi),
-    )
-
-
-_HP = jax.lax.Precision.HIGHEST
-# MXU precision of the DFT tensordots. HIGHEST (bf16x6 passes, full-f32
-# products) is the accuracy-of-record default; CFD_TPU_DFT_PRECISION=high
-# trades ~2 decades of the round trip's 1e-7 error for half the MXU time
-# (read at import/trace time — A/B runs use fresh processes).
-_DFT_PREC = {
-    "high": jax.lax.Precision.HIGH,
-    "highest": _HP,
-}[os.environ.get("CFD_TPU_DFT_PRECISION", "highest").lower()]
-
-
-def _dft_apply(re, im, C, S, axis):
-    """One complex DFT stage along ``axis`` as real tensordots.
-
-    Complex x complex stages use the 3-multiply form (t1 = C re,
-    t2 = S im, t3 = (C+S)(re+im)) — 25% fewer MXU passes than the
-    textbook 4-multiply product at the cost of one extra rounding in the
-    imaginary part (measured immaterial: the table sums C+S are formed in
-    float64 numpy before truncation).
-    """
-    ax = axis % re.ndim
-    if im is None:
-        rr = jnp.tensordot(
-            jnp.asarray(C), re, axes=([1], [ax]), precision=_DFT_PREC
-        )
-        ir = jnp.tensordot(
-            jnp.asarray(S), re, axes=([1], [ax]), precision=_DFT_PREC
-        )
-        return jnp.moveaxis(rr, 0, ax), jnp.moveaxis(ir, 0, ax)
-    CpS = (
-        np.asarray(C, np.float64) + np.asarray(S, np.float64)
-    ).astype(np.float32)
-    t1 = jnp.tensordot(jnp.asarray(C), re, axes=([1], [ax]), precision=_DFT_PREC)
-    t2 = jnp.tensordot(jnp.asarray(S), im, axes=([1], [ax]), precision=_DFT_PREC)
-    t3 = jnp.tensordot(
-        jnp.asarray(CpS), re + im, axes=([1], [ax]), precision=_DFT_PREC
-    )
-    return jnp.moveaxis(t1 - t2, 0, ax), jnp.moveaxis(t3 - t1 - t2, 0, ax)
-
-
-def _split_stage(n: int) -> bool:
-    """Whether a length-n c2c stage runs as a radix-2 split of two
-    length-n/2 sub-DFTs.
-
-    Worth it exactly when the sub-DFT contraction still fills the MXU's
-    128-deep systolic dimension: the split halves the stage's MACs (two
-    (m, m) complex matmuls instead of one (n, n)) at full utilization,
-    and the butterfly/twiddle combine is a cheap fused VPU pass. Below
-    m = 128 the utilization loss cancels the MAC saving, so stop there.
-    """
-    m = n // 2
-    return n % 2 == 0 and m >= 128 and m % 128 == 0
-
-
-def _freq_perm(n: int) -> np.ndarray:
-    """DFT-bin order emitted by the forward c2c stage along a length-n axis.
-
-    A split stage emits [evens; odds] (decimation in frequency, halves NOT
-    re-interleaved — downstream spectral tables are permuted to match
-    instead, which is free at trace time, while the interleave would be a
-    real strided HBM pass), each half recursively in its own sub-split
-    order (n=512 splits twice: 4 sub-DFTs of 128). Dense stages emit
-    natural order.
-    """
-    if _split_stage(n):
-        sub = _freq_perm(n // 2)
-        return np.concatenate([np.arange(0, n, 2)[sub], np.arange(1, n, 2)[sub]])
-    return np.arange(n)
-
-
-@functools.lru_cache(maxsize=64)
-def _twiddle_tables(n: int):
-    """(cos, sin) of 2*pi*q/n for q in [0, n/2), float32 built in float64."""
-    th = 2.0 * np.pi * np.arange(n // 2) / n
-    return np.cos(th).astype(np.float32), np.sin(th).astype(np.float32)
-
-
-def _rfreq_perm(n: int) -> np.ndarray:
-    """rfft-bin order emitted by the forward x stage (length n//2+1):
-    [even bins in the recursive sub-order; odd bins natural]."""
-    if _split_stage(n):
-        sub = _rfreq_perm(n // 2)
-        return np.concatenate(
-            [np.arange(0, n // 2 + 1, 2)[sub], np.arange(1, n // 2, 2)]
-        )
-    return np.arange(n // 2 + 1)
-
-
-@functools.lru_cache(maxsize=64)
-def _rsplit_tables(n: int):
-    """Odd-bin tables for the split r2c x stage, float32 from float64:
-    ``(C1, S1)`` of shape (m/2, m) with
-    ``C1[r, q] = cos(2*pi*q*(2r+1)/n)``, ``S1 = -sin`` — the odd rfft bins
-    of the half-difference sequence."""
-    m = n // 2
-    q = np.arange(m)
-    r = np.arange(m // 2)
-    th1 = 2.0 * np.pi * np.outer(2 * r + 1, q) / n
-    f32 = lambda a: np.asarray(a, np.float32)
-    return f32(np.cos(th1)), f32(-np.sin(th1))
-
-
-def _bcast(v: np.ndarray, ndim: int, axis: int):
-    shape = [1] * ndim
-    shape[axis % ndim] = v.shape[0]
-    return jnp.asarray(v).reshape(shape)
-
-
-def _c2c_stage(re, im, n: int, axis: int, inverse: bool):
-    """One complex DFT stage along ``axis``: dense matmul, or the radix-2
-    split form when ``_split_stage(n)``.
-
-    Forward split (decimation in frequency): a = lo + hi,
-    b = (lo - hi) * w^q with w = exp(-2*pi*i/n); output is
-    [DFT_m(a); DFT_m(b)] = the even then the odd bins (``_freq_perm``
-    order). Inverse consumes that order: A = IDFT_m(X_even),
-    B = IDFT_m(X_odd), then lo = (A + conj(w)^q B)/2,
-    hi = (A - conj(w)^q B)/2 restores natural sample order (the /2
-    completes 1/n = (1/m)/2 normalization).
-    """
-    if not _split_stage(n):
-        t = _dft_tables(n)
-        C, S = (t[4], t[5]) if inverse else (t[2], t[3])
-        return _dft_apply(re, im, C, S, axis)
-    # (a dense column-permuted inverse — no butterfly glue, full MACs —
-    # was A/B'd at 2.96 vs 2.88 ms for the 256^3 Poisson round trip: the
-    # split inverse keeps its MXU win because its butterfly/concat land on
-    # sublane/major axes, unlike the c2r lane-axis case below)
-    m = n // 2
-    ax = axis % re.ndim
-    lo_re, hi_re = jnp.split(re, 2, axis=ax)
-    lo_im, hi_im = jnp.split(im, 2, axis=ax)
-    c, s = _twiddle_tables(n)
-    cb = _bcast(c, re.ndim, ax)
-    sb = _bcast(s, re.ndim, ax)
-    if not inverse:
-        a_re, a_im = lo_re + hi_re, lo_im + hi_im
-        d_re, d_im = lo_re - hi_re, lo_im - hi_im
-        # w^q = cos - i sin
-        b_re = d_re * cb + d_im * sb
-        b_im = d_im * cb - d_re * sb
-        # sub-transforms recurse while the half still fills the MXU
-        # (n=512: two levels -> four 128-deep sub-DFTs)
-        e_re, e_im = _c2c_stage(a_re, a_im, m, ax, inverse)
-        o_re, o_im = _c2c_stage(b_re, b_im, m, ax, inverse)
-    else:
-        A_re, A_im = _c2c_stage(lo_re, lo_im, m, ax, inverse)
-        B_re, B_im = _c2c_stage(hi_re, hi_im, m, ax, inverse)
-        # conj(w)^q = cos + i sin
-        tb_re = B_re * cb - B_im * sb
-        tb_im = B_im * cb + B_re * sb
-        e_re, e_im = 0.5 * (A_re + tb_re), 0.5 * (A_im + tb_im)
-        o_re, o_im = 0.5 * (A_re - tb_re), 0.5 * (A_im - tb_im)
-    return (
-        jnp.concatenate([e_re, o_re], axis=ax),
-        jnp.concatenate([e_im, o_im], axis=ax),
-    )
-
-
-def _r2c_stage(x, nx: int):
-    """Forward real-to-complex stage along the last axis.
-
-    Split form (``_split_stage(nx)``): even bins are the r2c of the
-    half-sum (the m-point r2c tables verbatim — w2/n weights differ only
-    by the factor the inverse folds back), odd bins a dedicated
-    (m/2, m) real matmul of the half-difference; bins emerge in
-    ``_rfreq_perm`` order. 2x fewer MACs than the dense (nf, n) form.
-    """
-    ax = x.ndim - 1
-    if not _split_stage(nx):
-        Cx, Sx = _dft_tables(nx)[:2]
-        return _dft_apply(x, None, Cx, Sx, ax)
-    m = nx // 2
-    lo, hi = jnp.split(x, 2, axis=ax)
-    e_re, e_im = _r2c_stage(lo + hi, m)  # recurses while m fills the MXU
-    C1, S1 = _rsplit_tables(nx)[:2]
-    o_re, o_im = _dft_apply(lo - hi, None, C1, S1, ax)
-    return (
-        jnp.concatenate([e_re, o_re], axis=ax),
-        jnp.concatenate([e_im, o_im], axis=ax),
-    )
-
-
-def _c2r_stage(re, im, nx: int):
-    """Inverse complex-to-real stage along the last axis (hermitian
-    doubling folded into the tables), consuming ``_rfreq_perm`` bin order
-    via COLUMN-PERMUTED dense tables.
-
-    A split (two half-size transforms + butterfly) was measured SLOWER
-    here despite 1.6x fewer MACs: reassembling natural lane order costs a
-    pad+concat pass (0.36 ms vs the dense stage's 0.28 at 256^3) that the
-    MXU saving cannot repay. Permuting the dense table's columns to the
-    incoming bin order instead is free — it happens in numpy at trace
-    time — so the permuted-input inverse costs exactly the dense stage.
-    """
-    ax = re.ndim - 1
-    Cxi, Sxi = _dft_tables(nx)[6:]
-    perm = _rfreq_perm(nx)
-    out = jnp.tensordot(
-        jnp.asarray(Cxi[:, perm]), re, axes=([1], [ax]), precision=_DFT_PREC
-    ) - jnp.tensordot(
-        jnp.asarray(Sxi[:, perm]), im, axes=([1], [ax]), precision=_DFT_PREC
-    )
-    return jnp.moveaxis(out, 0, ax)
-
-
-def _rfft3_mm(x):
-    """rfftn over the trailing three axes as (re, im) float32 pairs.
-
-    Bins come out in ``_freq_perm`` (y/z) / ``_rfreq_perm`` (x) order when
-    split stages fire; multiplier tables must be permuted to match
-    (``_solve_poisson`` does).
-    """
-    nz, ny, nx = x.shape[-3:]
-    re, im = _r2c_stage(x.astype(jnp.float32), nx)
-    for ax, n in ((-2, ny), (-3, nz)):
-        re, im = _c2c_stage(re, im, n, ax, inverse=False)
-    return re, im
-
-
-def _irfft3_mm(re, im, nx: int):
-    """Inverse of ``_rfft3_mm`` (real output, trailing axis restored)."""
-    nz, ny = re.shape[-3], re.shape[-2]
-    for ax, n in ((-3, nz), (-2, ny)):
-        re, im = _c2c_stage(re, im, n, ax, inverse=True)
-    return _c2r_stage(re, im, nx)
-
-
-def _use_matmul_dft(shape, dtype) -> bool:
-    """auto: the MXU transform wins on TPU f32 up to table-friendly sizes.
-
-    ``CFD_TPU_MATMUL_DFT=0/1`` overrides (read at trace time — flipping it
-    after a shape has been jitted does not retrace; benchmarking A/B runs
-    use fresh processes or call the transform internals directly).
-    """
-    knob = os.environ.get("CFD_TPU_MATMUL_DFT", "auto")
-    if knob in ("0", "1"):
-        return knob == "1"
-    return (
-        dtype == jnp.float32
-        and len(shape) == 3
-        and max(shape) <= 1024
-        and jax.default_backend() == "tpu"
-    )
-
-
 @functools.partial(jax.jit, static_argnames=("scheme", "spacing", "mean"))
 def _solve_poisson(rhs, scheme, spacing, mean):
     rdt, cdt = _fft_dtypes(rhs.dtype)
@@ -435,21 +138,6 @@ def _solve_poisson(rhs, scheme, spacing, mean):
     nonzero = lam != 0.0
     inv[nonzero] = 1.0 / lam[nonzero]
     npts = rhs.shape[-3] * rhs.shape[-2] * rhs.shape[-1]
-    if _use_matmul_dft(rhs.shape, rhs.dtype):
-        re, im = _rfft3_mm(rhs)
-        # split-radix stages emit permuted bins; reorder the eigenvalue
-        # table to match (bin 0 stays at index 0 on every axis, so the
-        # mean-mode poke below is order-invariant)
-        inv = inv[_freq_perm(rhs.shape[-3])][:, _freq_perm(rhs.shape[-2])][
-            :, :, _rfreq_perm(rhs.shape[-1])
-        ]
-        invj = jnp.asarray(inv, rdt)
-        re = re * invj
-        im = im * invj
-        if mean != 0.0:
-            re = re.at[..., 0, 0, 0].set(mean * npts)
-            im = im.at[..., 0, 0, 0].set(0.0)
-        return _irfft3_mm(re, im, rhs.shape[-1]).astype(rhs.dtype)
     p_hat = jnp.fft.rfftn(rhs, axes=(-3, -2, -1)) * jnp.asarray(inv, rdt)
     if mean != 0.0:
         p_hat = p_hat.at[..., 0, 0, 0].set(mean * npts)
@@ -529,19 +217,13 @@ def project(u, spacing, scheme: CompactScheme, *, method: str = "auto"):
 
     Two algebraically identical forms (``method``):
 
-    * ``'spectral'`` — per-mode vector projection
-      ``u_hat - k'(k'.u_hat)/|k'|^2``: SIX scalar FFTs (3 forward +
-      3 inverse). Pure — no derivative backend in the loop — so it is
-      exact to rounding in f64; the default off-TPU.
+    * ``'spectral'`` (``'auto'``) — per-mode vector projection
+      ``u_hat - k'(k'.u_hat)/|k'|^2``: six scalar FFTs (3 forward +
+      3 inverse). No derivative backend in the loop, so it is exact to
+      rounding in f64.
     * ``'compact'`` — ``u - grad(solve_poisson(div u))`` with div/grad
-      evaluated in physical space by the compact kernels: TWO scalar
-      FFTs plus the fused divergence (6 HBM passes) and gradient
-      (5 passes) pipelines. On the v5e at 256^3 f32 the FFTs are ~3 ms
-      each while the kernel passes are ~0.1 ms/pass, so this form is
-      ~2x faster; the default on TPU (f32), where the kernels' ~1e-7
-      relative error is far below the f32 FFT's own rounding.
-
-    ``'auto'`` picks as described.
+      evaluated in physical space by the compact derivatives: two scalar
+      FFTs plus the divergence and gradient.
     """
     from .derivatives import _spacings3
 
@@ -560,36 +242,11 @@ def project(u, spacing, scheme: CompactScheme, *, method: str = "auto"):
     if method not in ("auto", "spectral", "compact"):
         raise ValueError(f"unknown project method {method!r}")
     sp = tuple(float(s) for s in _spacings3(spacing))
-    if method == "auto":
-        method = (
-            "compact"
-            if (
-                ux.dtype == jnp.float32
-                and ux.ndim == 3
-                and jax.default_backend() == "tpu"
-            )
-            else "spectral"
-        )
     if method == "compact":
         from .derivatives import divergence, gradient
 
         d = divergence((ux, uy, uz), sp, scheme)
         phi = _solve_poisson(d, scheme, sp, 0.0)
-        dz, dy, dx = sp
-        if ux.dtype == jnp.float32 and jax.default_backend() == "tpu":
-            # fused epilogues: u - grad(phi) without the intermediate
-            # gradients ever making an HBM round trip
-            from .pallas_leading import leading_supported
-            from .pallas_pair import pair_sub_supported, pair_subtract
-
-            if pair_sub_supported(
-                scheme, ux.shape[-2], ux.shape[-1], ux.dtype
-            ) and leading_supported(scheme, ux.shape[0], ux.dtype):
-                from .pallas_leading import leading_derivative
-
-                px, py = pair_subtract(phi, ux, uy, dy, dx, scheme)
-                pz = leading_derivative(phi, -dz, scheme, acc=uz)
-                return (px, py, pz.astype(uz.dtype))
         gx, gy, gz = gradient(phi, sp, scheme)
         return (ux - gx, uy - gy, uz - gz)
     return _project(ux, uy, uz, scheme, sp)

@@ -3,20 +3,25 @@
 Equivalent of the reference's ``computeRHS`` CUDA kernel
 (/root/reference/code/cuda/kernels.cu:4-47): interior antisymmetric stencil
 plus one-sided closure rows at physical boundaries. Here it is a handful of
-shifted adds that XLA fuses into the surrounding computation; the fully fused
-RHS+solve lives in the Pallas kernel (ops/pallas_fused.py).
+shifted adds that XLA fuses into the surrounding computation.
 
 Convention: the derivative axis is the *leading* axis — shape (n, *batch).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..schemes import CompactScheme
 
 __all__ = ["compact_rhs", "closure_ghosts", "stencil_rhs"]
+
+# Closure rows are contracted at full f32 precision: a default-precision f32
+# dot may run in TF32 on the GPU (about three decimal digits), which would
+# corrupt every non-periodic boundary row.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def stencil_rhs(f_ext: jnp.ndarray, inv_dx, scheme: CompactScheme) -> jnp.ndarray:
@@ -93,12 +98,21 @@ def compact_rhs(f: jnp.ndarray, dx, scheme: CompactScheme, axis: int = 0):
     top = []
     for row in scheme.left_rows:
         s = jnp.asarray(np.asarray(row.rhs_stencil), dtype)
-        top.append(jnp.tensordot(s, sl(0, len(row.rhs_stencil)), axes=(0, axis)))
+        top.append(
+            jnp.tensordot(
+                s, sl(0, len(row.rhs_stencil)), axes=(0, axis), precision=_HIGHEST
+            )
+        )
     bot = []
     for row in scheme.right_rows:
         s = jnp.asarray(np.asarray(row.rhs_stencil[::-1]), dtype)
         bot.append(
-            jnp.tensordot(s, sl(n - len(row.rhs_stencil), n), axes=(0, axis))
+            jnp.tensordot(
+                s,
+                sl(n - len(row.rhs_stencil), n),
+                axes=(0, axis),
+                precision=_HIGHEST,
+            )
         )
     # tensordot removes ``axis``; re-insert it for stacking
     top = [jnp.expand_dims(t, axis) for t in top]
@@ -113,7 +127,7 @@ def compact_rhs(f: jnp.ndarray, dx, scheme: CompactScheme, axis: int = 0):
 def closure_ghosts(f: jnp.ndarray, scheme: CompactScheme):
     """Ghost rows that make the *interior* stencil reproduce the closure RHS.
 
-    For the fused Pallas kernel the RHS must be a uniform interior stencil
+    For the distributed solve the RHS must be a uniform interior stencil
     over an extended array ``f_ext = [ghost_left; f; ghost_right]``. At a
     physical boundary we choose the ghost values so that applying the
     interior stencil at rows 0..nb-1 yields exactly the closure rows'
@@ -164,7 +178,12 @@ def closure_ghosts(f: jnp.ndarray, scheme: CompactScheme):
         for row in scheme.left_rows:
             s = np.asarray(row.rhs_stencil)
             out.append(
-                jnp.tensordot(jnp.asarray(s, dtype), g[: len(s)], axes=(0, 0))
+                jnp.tensordot(
+                    jnp.asarray(s, dtype),
+                    g[: len(s)],
+                    axes=(0, 0),
+                    precision=_HIGHEST,
+                )
             )
         return out
 

@@ -16,9 +16,8 @@ Two families:
   ``sum_k E(k) == 0.5 * mean(|u|^2)``.
 - **Scheme-consistent physical-space statistics** (``enstrophy``,
   ``dissipation``): evaluated through this package's compact operators
-  (curl/gradient), so they measure what the *discrete* model dissipates —
-  on TPU these ride the fused vector-calculus kernels via the normal
-  ``auto`` routing.
+  (curl/gradient), so they measure what the *discrete* model dissipates,
+  through the normal ``auto`` routing.
 
 Reference lineage: the reference stops at derivative evaluation; these
 diagnostics are beyond its surface, motivated by its CFD consumers (the
@@ -152,7 +151,7 @@ def energy_spectrum(u, spacing) -> jax.Array:
 
 def enstrophy(u, spacing, scheme: CompactScheme) -> jax.Array:
     """Volume-mean enstrophy ``0.5 * mean(|curl u|^2)`` through the compact
-    curl (the fused ``ops.curl`` route on TPU). For periodic incompressible
+    curl. For periodic incompressible
     fields the dissipation rate is ``2 * nu * enstrophy``."""
     from .derivatives import curl
 

@@ -1,10 +1,10 @@
-"""Batched tridiagonal solvers for TPU (JAX/XLA level).
+"""Batched tridiagonal solvers (JAX/XLA level).
 
 The systems arising from compact schemes are *near-Toeplitz*: one set of
 bands (dl, d, du) of length ``n`` shared by every line in the batch; only the
 right-hand side varies per line. All RHS-independent work is therefore done
 once at setup time in float64 numpy ("factor"), leaving a solve that is pure
-axpy traffic over the batch — the TPU-idiomatic counterpart of the
+axpy traffic over the batch — the device-side counterpart of the
 reference's precomputed cyclic-reduction coefficient tables
 (/root/reference/code/cuda/solvers/templated/near_toeplitz.py:109-184).
 
@@ -15,14 +15,14 @@ Three solver families:
   numerically the strongest; O(n) work, O(n) sequential depth.
 * ``pcr_factor`` / ``pcr_solve`` — parallel cyclic reduction with
   precomputed per-level RHS-update coefficients. O(n log n) work but only
-  ceil(log2 n) fused full-batch vector steps — no scan, XLA-friendly,
-  usually fastest at the XLA level on TPU. Any n (zero-fill shifts).
+  ceil(log2 n) fused full-batch vector steps — no scan, XLA-friendly.
+  Any n (zero-fill shifts).
 * ``cyclic_factor`` / ``cyclic_solve`` — periodic (cyclic) tridiagonal via
   Sherman–Morrison over either core solver: one core solve plus a rank-1
   correction whose vector ``q`` is precomputed.
 
-Solve convention: RHS has shape ``(n, *batch)`` — the solve axis leading so
-the batch fills TPU (sublane, lane) tiles.
+Solve convention: RHS has shape ``(n, *batch)`` — the solve axis leading,
+the batch contiguous.
 """
 
 from __future__ import annotations

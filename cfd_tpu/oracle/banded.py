@@ -7,7 +7,7 @@ code/cuda/test/test_kernels.py:29-53). Periodic schemes are solved with a
 dense numpy solve (oracle only — O(n^2), never on the hot path).
 
 Everything here is float64 numpy; this module is the correctness anchor for
-every JAX/Pallas path in the package.
+every JAX path in the package.
 """
 
 from __future__ import annotations

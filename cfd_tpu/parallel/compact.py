@@ -1,6 +1,6 @@
-"""Distributed compact derivatives: substructuring over a TPU mesh.
+"""Distributed compact derivatives: substructuring over a device mesh.
 
-TPU-native rebuild of the reference's distributed tridiagonal algorithm
+A rebuild of the reference's distributed tridiagonal algorithm
 (/root/reference/code/cuda/compact.py:29-154): each shard solves its local
 truncated block system, two precomputed unit-load ("upper/lower halo")
 solutions carry the inter-shard couplings, and a small reduced interface
@@ -16,9 +16,8 @@ Differences from the reference, by design:
   own 64-rank logs show serializing (`solve_reduced_system` dominating,
   SURVEY.md §3.2).
 * The reduced solve is a dense (2, 2p) x (2p, batch) matmul against
-  precomputed rows of the reduced-matrix inverse — MXU-friendly, pivoted at
-  setup time in float64, and each shard only ever computes its own
-  (alpha, beta) rows.
+  precomputed rows of the reduced-matrix inverse — pivoted at setup time in
+  float64, and each shard only ever computes its own (alpha, beta) rows.
 * Secondary (unit-load) systems are solved once at setup in float64 numpy
   (the reference re-solves them on the host with scipy every call,
   compact.py:128-154).
@@ -58,10 +57,8 @@ class DirectionTables:
 
     * ``k1, k2, invb``   — PCR tables of each rank's local block, (p, L, nl)
                            and (p, nl)
-    * ``tw, tinvd, tdu`` — Thomas tables of the local block, (p, nl) each
-                           (consumed by the fused Pallas kernel)
     * ``tinv``           — dense inverses of the local blocks, (p, nl, nl)
-                           (consumed by the MXU 'matmul' path)
+                           (consumed by the 'matmul' path)
     * ``uh, lh``         — unit-load secondary solutions, (p, nl)
     * ``rinv_rows``      — own rows of the reduced-matrix inverse, (p, 2, 2p)
     """
@@ -69,9 +66,6 @@ class DirectionTables:
     k1: np.ndarray
     k2: np.ndarray
     invb: np.ndarray
-    tw: np.ndarray
-    tinvd: np.ndarray
-    tdu: np.ndarray
     tinv: np.ndarray
     uh: np.ndarray
     lh: np.ndarray
@@ -80,13 +74,11 @@ class DirectionTables:
     @staticmethod
     def fields_for(method: str):
         """Field names a given local-solve method actually consumes —
-        shipping the rest (e.g. the (p, nl, nl) dense inverses on the
-        Pallas path) would waste transfer and HBM."""
+        shipping the rest (e.g. the (p, nl, nl) dense inverses on the PCR
+        path) would waste transfer and device memory."""
         common = ("uh", "lh", "rinv_rows")
         per_method = {
-            "pallas": ("tw", "tinvd", "tdu"),
             "pcr": ("k1", "k2", "invb"),
-            "thomas": ("k1", "k2", "invb"),
             "matmul": ("tinv",),
         }
         return per_method[method] + common
@@ -114,21 +106,15 @@ def direction_tables(scheme: CompactScheme, n: int, p: int) -> DirectionTables:
     periodic = scheme.periodic
     alpha = scheme.alpha
 
-    k1s, k2s, invbs, tws, tinvds, tdus, tinvs, uhs, lhs_ = (
-        [], [], [], [], [], [], [], [], [],
-    )
+    k1s, k2s, invbs, tinvs, uhs, lhs_ = [], [], [], [], [], []
     for r in range(p):
         first = (r == 0) and not periodic
         last = (r == p - 1) and not periodic
         bands = lhs_bands(scheme, nl, first_block=first, last_block=last)
         pf = tridiag.pcr_factor(*bands)
-        tf = tridiag.thomas_factor(*bands)
         k1s.append(pf.k1)
         k2s.append(pf.k2)
         invbs.append(pf.invb)
-        tws.append(tf.w)
-        tinvds.append(tf.invd)
-        tdus.append(tf.du)
         dl_, d_, du_ = bands
         T = np.diag(d_) + np.diag(dl_[1:], -1) + np.diag(du_[:-1], 1)
         tinvs.append(np.linalg.inv(T))
@@ -136,8 +122,7 @@ def direction_tables(scheme: CompactScheme, n: int, p: int) -> DirectionTables:
         # this block's first/last row to its neighbours is the interior
         # off-diagonal alpha; closure rows at physical ends have none.
         # p == 1 periodic is the single-block case (one block cyclically
-        # coupled to ITSELF — the lane/sublane kernels' nb=1 route): the
-        # self-coupling solutions and the 2x2 cyclic reduced system are
+        # coupled to ITSELF): the self-coupling solutions and the 2x2 cyclic reduced system are
         # real there, so only non-periodic physical ends zero them.
         e = np.zeros(nl)
         if periodic or r > 0:
@@ -196,9 +181,6 @@ def direction_tables(scheme: CompactScheme, n: int, p: int) -> DirectionTables:
         k1=np.stack(k1s),
         k2=np.stack(k2s),
         invb=np.stack(invbs),
-        tw=np.stack(tws),
-        tinvd=np.stack(tinvds),
-        tdu=np.stack(tdus),
         tinv=np.stack(tinvs),
         uh=uh,
         lh=lh,
@@ -220,7 +202,6 @@ def _dist_lines(
     p: int,
     inv_dx,
     method: str,
-    interpret: bool,
 ):
     """Distributed derivative of shard-local lines ``fl`` (nl, *batch).
 
@@ -244,9 +225,7 @@ def _dist_lines(
         else:
             if method == "phipsi":  # whole line: any direct solver is exact
                 method = "pcr"
-            out = _derivative_lines(
-                fl, 1.0 / inv_dx, scheme, method, interpret=interpret
-            )
+            out = _derivative_lines(fl, 1.0 / inv_dx, scheme, method)
         return out.astype(orig_dtype)
 
     if method == "phipsi":
@@ -268,7 +247,6 @@ def _dist_lines(
         p=p,
         inv_dx=inv_dx,
         method=method,
-        interpret=interpret,
     )
     ab = _phase_reduced(x_r, tables, scheme=scheme, axis_name=axis_name, p=p)
     return _phase_update(x_r, ab, tables).astype(orig_dtype)
@@ -293,34 +271,13 @@ def _assemble_rhs(fl, *, tables, scheme, axis_name, p, inv_dx):
     return stencil_rhs(f_ext, inv_dx, scheme)
 
 
-def _phase_local_solve(
-    fl, tables, *, scheme, axis_name, p, inv_dx, method, interpret
-):
+def _phase_local_solve(fl, tables, *, scheme, axis_name, p, inv_dx, method):
     """Halo/ghost assembly + RHS + local primary solve -> x_R.
 
     Covers the reference phases ``compute_RHS`` + ``solve_primary_system``
     (+ the host-side ``solve_secondary_systems``, which here is setup-time)."""
-    w = scheme.stencil_width
-    nl = fl.shape[0]
-    bshape = fl.shape[1:]
     dtype = fl.dtype
-
     left, right = _halo_ghosts(fl, scheme=scheme, axis_name=axis_name, p=p)
-
-    if method == "pallas":
-        from ..ops.pallas_fused import solve_lines_tables_pallas
-
-        return solve_lines_tables_pallas(
-            fl.reshape(nl, -1),
-            left.reshape(w, -1),
-            right.reshape(w, -1),
-            inv_dx,
-            tables["tw"][0].astype(dtype),
-            tables["tinvd"][0].astype(dtype),
-            tables["tdu"][0].astype(dtype),
-            scheme=scheme,
-            interpret=interpret,
-        ).reshape((nl,) + bshape)
     f_ext = jnp.concatenate([left, fl, right], axis=0)
     rhs = stencil_rhs(f_ext, inv_dx, scheme)
     if method == "matmul":
@@ -354,8 +311,8 @@ def _reduced_from_faces(face_f, face_l, rinv_rows, *, scheme, axis_name, p):
     faces = jnp.stack([face_f, face_l])  # (2, *batch)
     all_faces = lax.all_gather(faces, axis_name, axis=0, tiled=True)  # (2p, *b)
     flat = all_faces.reshape(2 * p, -1)
-    # HIGHEST keeps the f32 interface weights at f32 accuracy on the MXU;
-    # without it this matmul runs in bf16 and corrupts every shard boundary
+    # HIGHEST keeps the f32 interface weights at f32 accuracy; at default
+    # precision this matmul may run in TF32 and corrupt every shard boundary
     return jnp.dot(
         rinv_rows.astype(dtype),
         flat,
@@ -376,204 +333,6 @@ def _phase_reduced(x_r, tables, *, scheme, axis_name, p):
     )
 
 
-def _halo_ghosts_axis(fl, axis, *, scheme, axis_name, p):
-    """Axis-aware halo/ghost slabs: ``w`` planes of the neighbours along
-    ``axis`` (closure ghosts at physical ends), without relayouting ``fl``.
-
-    The ppermute moves only the w-deep face slabs; the closure-ghost
-    construction (ops/rhs.closure_ghosts, leading-axis convention) runs on
-    a tiny end-slab pair moved to the leading axis — O(w/nl) of the block.
-    """
-    w = scheme.stencil_width
-    nl = fl.shape[axis]
-    sl = lambda lo, hi: lax.slice_in_dim(fl, lo, hi, axis=axis)
-    fwd = [(i, i + 1) for i in range(p - 1)]
-    bwd = [(i + 1, i) for i in range(p - 1)]
-    if scheme.periodic:
-        fwd.append((p - 1, 0))
-        bwd.append((0, p - 1))
-    left = lax.ppermute(sl(nl - w, nl), axis_name, fwd)
-    right = lax.ppermute(sl(0, w), axis_name, bwd)
-    if not scheme.periodic:
-        # ghost construction reads at most m rows from each end; the two
-        # end slabs concatenated are a valid stand-in for the full line
-        m = max(
-            (len(r.rhs_stencil) for r in scheme.left_rows + scheme.right_rows),
-            default=0,
-        )
-        m = min(nl, max(m, scheme.n_closure + w) + 1)
-        ends = jnp.concatenate([sl(0, m), sl(nl - m, nl)], axis=axis)
-        gl, gr = closure_ghosts(jnp.moveaxis(ends, axis, 0), scheme)
-        gl = jnp.moveaxis(gl, 0, axis)
-        gr = jnp.moveaxis(gr, 0, axis)
-        ridx = lax.axis_index(axis_name)
-        left = jnp.where(ridx == 0, gl, left)
-        right = jnp.where(ridx == p - 1, gr, right)
-    return left, right
-
-
-def _stencil_axis(ext, axis, inv_dx, scheme):
-    """Uniform interior stencil along ``axis`` of a ghost-extended slab
-    (the axis-aware sibling of ops/rhs.stencil_rhs)."""
-    w = scheme.stencil_width
-    n = ext.shape[axis] - 2 * w
-    dtype = ext.dtype
-    s = jnp.asarray(scheme.rhs_sign, dtype)
-    sl = lambda lo: lax.slice_in_dim(ext, lo, lo + n, axis=axis)
-    r = None
-    for k, wk in zip(scheme.rhs_offsets, scheme.rhs_weights):
-        t = jnp.asarray(wk, dtype) * (sl(w + k) + s * sl(w - k))
-        r = t if r is None else r + t
-    if scheme.rhs_center:
-        r = r + jnp.asarray(scheme.rhs_center, dtype) * sl(w)
-    return r * jnp.asarray(inv_dx, dtype) ** scheme.derivative_order
-
-
-def _shard_faces_axis(fl, axis, left, right, fv, *, scheme, inv_dx):
-    """Interface faces of the shard-local solve ``x_R = T_r^{-1} rhs``,
-    read directly off *folded* truncated functionals — no local solve, no
-    stencil pass.
-
-    Tridiagonal inverse rows decay geometrically away from the diagonal,
-    so ``x_R[0]`` / ``x_R[-1]`` are K-term functionals of the first/last K
-    RHS rows; folding the stencil in (``fv = S^T fw``, (2, K+2w), from
-    dist_tables) turns each face into ONE dot against the raw end slab +
-    one against the w halo rows. On the lane axis the slab is padded to a
-    128-lane tile (zero-padding the vector) so the DMA reads full tiles
-    instead of 4-byte runs. Returns two arrays of ``fl``'s batch shape,
-    scaled like the kernels' output (inv_dx**order).
-    """
-    w = scheme.stencil_width
-    nl = fl.shape[axis]
-    Ke = fv.shape[-1]
-    K = Ke - 2 * w
-    ax = axis % fl.ndim
-    hi = jax.lax.Precision.HIGHEST
-    dtype = fl.dtype
-    fv = fv.astype(dtype)
-    sl = lambda lo, hi_: lax.slice_in_dim(fl, lo, hi_, axis=axis)
-
-    def dot(a, v):
-        return jnp.tensordot(a, v, axes=([ax], [0]), precision=hi)
-
-    if K >= nl:
-        ext = jnp.concatenate([left, fl, right], axis=axis)
-        f0 = dot(ext, fv[0])
-        f1 = dot(ext, fv[1])
-    else:
-        L = K + w
-        if ax == fl.ndim - 1 and nl % 128 == 0:
-            # lane axis: read whole 128-lane tiles, pad the vector
-            L = min(nl, -(-L // 128) * 128)
-        pad = L - (K + w)
-        v0f = fv[0, w:]
-        v1f = fv[1, : K + w]
-        if pad:
-            zeros = jnp.zeros((pad,), dtype)
-            v0f = jnp.concatenate([v0f, zeros])
-            v1f = jnp.concatenate([zeros, v1f])
-        f0 = dot(sl(0, L), v0f) + dot(left, fv[0, :w])
-        f1 = dot(sl(nl - L, nl), v1f) + dot(right, fv[1, K + w :])
-    scale = jnp.asarray(inv_dx, dtype) ** scheme.derivative_order
-    return f0 * scale, f1 * scale
-
-
-def _dist_leading_pallas(fl, tabs, skt, *, scheme, axis_name, p, inv_dx, interpret):
-    """Distributed leading-axis derivative, shard-local view (native layout).
-
-    The round-4 fast path: the shard-local solve runs the round-3
-    native-3D substructured kernel (ops/pallas_leading.py) with halos in
-    and the outer rank-2 interface update fused into its backward sweep —
-    ~2 shard-local HBM passes plus the 2K-row face functionals, vs the
-    round-1 route's moveaxis relayout + flat kernel + two separate XLA
-    phases (~6 passes). The reference distributes its best single-GPU
-    solver the same way (code/cuda/compact.py:18,171-173).
-    """
-    from ..ops.pallas_leading import leading_dist_derivative
-    from .dist_tables import ShardKernelTables
-
-    orig_dtype = fl.dtype
-    if orig_dtype == jnp.bfloat16:
-        fl = fl.astype(jnp.float32)
-    left, right = _halo_ghosts(fl, scheme=scheme, axis_name=axis_name, p=p)
-    face_f, face_l = _shard_faces_axis(
-        fl, 0, left, right, tabs["fv"][0], scheme=scheme, inv_dx=inv_dx
-    )
-    ab = _reduced_from_faces(
-        face_f,
-        face_l,
-        tabs["rinv_rows"][0],
-        scheme=scheme,
-        axis_name=axis_name,
-        p=p,
-    )
-    kern_tabs = tuple(
-        tabs[nm][0] for nm in ShardKernelTables.KERNEL_FIELDS
-    )
-    out = leading_dist_derivative(
-        fl,
-        left,
-        right,
-        ab,
-        inv_dx,
-        kern_tabs,
-        scheme,
-        nb=skt.nb,
-        rsupport=skt.rsupport,
-        has_uh=skt.has_uh,
-        has_lh=skt.has_lh,
-        interpret=interpret,
-    )
-    return out.astype(orig_dtype)
-
-
-def _dist_minor_pallas(
-    fl, axis3, tabs, slt, *, scheme, axis_name, p, inv_dx, interpret
-):
-    """Distributed lane/sublane-axis derivative, shard-local view.
-
-    ``axis3`` 1 (dfdy, sublane form) or 2 (dfdx, lane form). Same phase
-    structure as ``_dist_leading_pallas``: truncated-functional faces ->
-    all_gather + reduced matmul -> one fused kernel dispatch with halo
-    lanes in and the outer rank-2 update folded into the write.
-    """
-    from ..ops.pallas_dist import lane_dist_derivative, sublane_dist_derivative
-
-    orig_dtype = fl.dtype
-    if orig_dtype == jnp.bfloat16:
-        fl = fl.astype(jnp.float32)
-    ax = axis3 - 3  # negative indexing over the trailing three dims
-    left, right = _halo_ghosts_axis(
-        fl, ax, scheme=scheme, axis_name=axis_name, p=p
-    )
-    face_f, face_l = _shard_faces_axis(
-        fl, ax, left, right, tabs["fv"][0], scheme=scheme, inv_dx=inv_dx
-    )
-    ab = _reduced_from_faces(
-        face_f,
-        face_l,
-        tabs["rinv_rows"][0],
-        scheme=scheme,
-        axis_name=axis_name,
-        p=p,
-    )  # (2, *batch-minus-line-axis)
-    kern_tabs = tuple(tabs[nm][0] for nm in type(slt).KERNEL_FIELDS)
-    dx = 1.0 / inv_dx
-    if axis3 == 2:
-        ab_l = jnp.moveaxis(ab, 0, -1)  # (..., 2) lane planes
-        out = lane_dist_derivative(
-            fl, left, right, ab_l, dx, kern_tabs, scheme, slt,
-            interpret=interpret,
-        )
-    else:
-        ab_s = jnp.moveaxis(ab, 0, ax)  # two planes along the line axis
-        out = sublane_dist_derivative(
-            fl, left, right, ab_s, dx, kern_tabs, scheme, slt,
-            axis=ax, interpret=interpret,
-        )
-    return out.astype(orig_dtype)
-
-
 def _phase_update(x_r, ab, tables):
     """Rank-2 update x = x_R + alpha x_UH + beta x_LH (``sum_solutions``,
     kernels.cu:49-74)."""
@@ -590,157 +349,76 @@ def _phase_update(x_r, ab, tables):
 class DistributedCompactSolver:
     """Compact derivatives of pencil-sharded 3-D fields on a device mesh.
 
-    The TPU counterpart of ``CompactFiniteDifferenceSolver``
+    The counterpart of ``CompactFiniteDifferenceSolver``
     (code/cuda/compact.py:16) plus the OCL variant's dfdy/dfdz
     (code/ocl/compact.py:41-61) — all three directions are first-class, with
     shard-local axis moves instead of host transposes.
 
-    ``method``: 'auto' (per dtype/size), 'pcr' (XLA-level, any
-    backend/dtype), 'pallas' (fused TPU kernel, f32/bf16), 'matmul' (dense
-    block inverses on the MXU), or 'phipsi' (the reference's second
-    distributed algorithm — parameterized-LU sweeps, non-periodic only;
-    see parallel/phipsi.py).
+    ``method``: 'auto' (per platform/dtype/size, ``ops.derivatives.
+    resolve_method``), 'pcr', 'thomas' (whole lines only; sharded lines
+    use PCR), 'matmul' (dense block inverses), or 'phipsi' (the reference's
+    second distributed algorithm — parameterized-LU sweeps, non-periodic
+    only; see parallel/phipsi.py).
     """
 
-    def __init__(
-        self,
-        grid: Grid,
-        *,
-        method: str = "auto",
-        interpret: bool = False,
-    ):
-        if method not in ("auto", "pcr", "thomas", "pallas", "matmul", "phipsi"):
+    _METHODS = ("auto", "pcr", "thomas", "matmul", "phipsi")
+
+    def __init__(self, grid: Grid, *, method: str = "auto"):
+        if method not in self._METHODS:
             raise ValueError(
                 f"method {method!r} is not supported on the distributed path"
             )
         self.grid = grid
         self.method = method
-        self.interpret = interpret
+        # jitted per-(axis, dtype) programs: a fresh shard_map closure per
+        # call would recompile every eager call
+        self._programs = {}
+
+    def _local_method(self, dtype, n_local: int) -> str:
+        """Local-solve route of a sharded line: 'pcr', 'matmul' or 'phipsi'.
+
+        The shard-local block system is solved from precomputed tables, so
+        only PCR and the dense block inverse apply. 'auto' takes the dense
+        inverse where ``resolve_method`` picks a dense or stencil route for
+        a line of the local length on this platform, and PCR otherwise.
+        """
+        if self.method == "phipsi":
+            return "phipsi"
+        from ..ops.derivatives import resolve_method
+
+        m = resolve_method(
+            self.method,
+            dtype,
+            n_local,
+            platform=jax.default_backend(),
+            scheme=self.grid.scheme,
+        )
+        return "matmul" if m in ("matmul", "stencil") else "pcr"
 
     def _derivative(self, f: jax.Array, axis: int) -> jax.Array:
+        if f.shape != self.grid.shape:
+            raise ValueError(
+                f"field shape {f.shape} != grid shape {self.grid.shape}"
+            )
+        key = (axis % 3, jnp.dtype(f.dtype).name)
+        if key not in self._programs:
+            self._programs[key] = self._build(*key)
+        fn, arrays = self._programs[key]
+        return fn(f, *arrays)
+
+    def _build(self, axis3: int, dtype_name: str):
+        """(jitted fn(f, *tables), tables) for one axis and field dtype."""
         grid = self.grid
         scheme = grid.scheme
-        if f.shape != grid.shape:
-            raise ValueError(
-                f"field shape {f.shape} != grid shape {grid.shape}"
-            )
-        axis3 = axis % 3  # 0=z, 1=y, 2=x over the trailing three dims
         axis_name = AXIS_NAMES[axis3]
         n = grid.shape[axis3]
         p = grid.proc_shape[axis3]
         inv_dx = 1.0 / grid.spacing[axis3]
-        from ..ops.derivatives import resolve_method
-
-        method = resolve_method(
-            self.method, f.dtype, n // p,
-            derivative_order=scheme.derivative_order,
-        )
-        if (
-            self.method == "auto"
-            and p > 1
-            and f.dtype == jnp.float32
-            and jax.default_backend() == "tpu"
-        ):
-            # distributed auto on TPU f32: the shard-local round-3 kernels
-            # (halo-in, fused outer update — the round-4 fast path below)
-            # beat the moveaxis + flat-kernel/matmul route wherever they
-            # apply; measured per-shard at the single-device kernels'
-            # throughput class (docs/RESULTS.md round 4)
-            from ..ops.pallas_dist import lane_dist_supported
-            from ..ops.pallas_leading import leading_dist_supported
-            from .dist_tables import pick_nb
-
-            if axis3 == 0:
-                if (
-                    leading_dist_supported(scheme, n // p, f.dtype)
-                    and pick_nb(n // p) >= 2
-                ):
-                    method = "pallas"
-            elif lane_dist_supported(scheme, n // p, f.dtype):
-                method = "pallas"
-        if method == "thomas":
-            # the distributed local solve has no scan-based Thomas variant;
-            # it would ship PCR tables anyway, so alias explicitly rather
-            # than silently running a different backend than requested
-            method = "pcr"
-        if method == "pallas" and f.dtype == jnp.float64:
-            raise ValueError(
-                "the distributed Pallas path supports float32/bfloat16 only; "
-                "use method='pcr' for float64 runs"
-            )
-        dtype = jnp.float64 if f.dtype == jnp.float64 else jnp.float32
-
-        if p > 1 and method == "pallas":
-            # round-4 fast path: the shard-local solve through the round-3
-            # kernel suite (leading / sublane / lane forms per axis), with
-            # halos in and the outer interface update fused into the write
-            from ..ops.pallas_dist import lane_dist_supported
-            from ..ops.pallas_leading import leading_dist_supported
-
-            if axis3 == 0:
-                supported = leading_dist_supported(scheme, n // p, f.dtype)
-            else:
-                supported = lane_dist_supported(scheme, n // p, f.dtype)
-            if supported:
-                from .dist_tables import (
-                    shard_kernel_tables,
-                    shard_lane_fold_tables,
-                    shard_lane_tables,
-                )
-
-                if axis3 == 0:
-                    skt = shard_kernel_tables(scheme, n, p)
-                elif scheme.derivative_order == 1:
-                    skt = shard_lane_tables(scheme, n, p)  # roll form
-                else:
-                    skt = shard_lane_fold_tables(scheme, n, p)  # fold form
-                knames = type(skt).FIELDS
-                karrays = tuple(
-                    jnp.asarray(getattr(skt, nm), jnp.float32)
-                    for nm in knames
-                )
-                spec = grid.spec()
-
-                def body_native(fl, *tabs):
-                    kw = dict(
-                        scheme=scheme,
-                        axis_name=axis_name,
-                        p=p,
-                        inv_dx=inv_dx,
-                        interpret=self.interpret,
-                    )
-                    named = dict(zip(knames, tabs))
-                    if axis3 == 0:
-                        return _dist_leading_pallas(fl, named, skt, **kw)
-                    return _dist_minor_pallas(fl, axis3, named, skt, **kw)
-
-                fn = shard_map(
-                    body_native,
-                    mesh=grid.mesh,
-                    in_specs=(spec,) + tuple(P(axis_name) for _ in karrays),
-                    out_specs=spec,
-                    check_vma=False,
-                )
-                return fn(f, *karrays)
-        if method == "phipsi":
-            from .phipsi import PHIPSI_FIELDS, phipsi_tables
-
-            tables = phipsi_tables(scheme, n, p)  # raises for periodic
-            names = PHIPSI_FIELDS if p > 1 else ()
-        else:
-            tables = direction_tables(scheme, n, p)
-            # ship only the table arrays this method consumes
-            names = tables.fields_for(method) if p > 1 else ()
-        arrays = tuple(jnp.asarray(getattr(tables, nm), dtype) for nm in names)
-
         spec = grid.spec()
-        tab_specs = tuple(P(axis_name) for _ in arrays)
 
         if p == 1:
             # the line axis is unsharded: take the axis-aware single-device
-            # path shard-locally (keeps the lane kernel for dfdx instead of
-            # moveaxis-ing lines to the leading axis; measured 49 -> 65+
-            # Gpt/s at 256^3 on a 1x1x1 mesh)
+            # path shard-locally, with the single-device route choice
             from ..ops.derivatives import derivative
 
             method1 = "pcr" if self.method == "phipsi" else self.method
@@ -765,7 +443,23 @@ class DistributedCompactSolver:
                 out_specs=spec,
                 check_vma=False,
             )
-            return fn1(f)
+            return jax.jit(fn1), ()
+
+        method = self._local_method(dtype_name, n // p)
+        dtype = np.float64 if dtype_name == "float64" else np.float32
+        if method == "phipsi":
+            from .phipsi import PHIPSI_FIELDS, phipsi_tables
+
+            tables = phipsi_tables(scheme, n, p)  # raises for periodic
+            names = PHIPSI_FIELDS
+        else:
+            tables = direction_tables(scheme, n, p)
+            # ship only the table arrays this method consumes
+            names = tables.fields_for(method)
+        # numpy, not device arrays: a build inside an outer trace must not
+        # cache anything tied to that trace
+        arrays = tuple(np.asarray(getattr(tables, nm), dtype) for nm in names)
+        tab_specs = tuple(P(axis_name) for _ in arrays)
 
         def body(fl, *tabs):
             fl0 = jnp.moveaxis(fl, axis3 - 3, 0)
@@ -777,7 +471,6 @@ class DistributedCompactSolver:
                 p=p,
                 inv_dx=inv_dx,
                 method=method,
-                interpret=self.interpret,
             )
             return jnp.moveaxis(x, 0, axis3 - 3)
 
@@ -786,10 +479,9 @@ class DistributedCompactSolver:
             mesh=grid.mesh,
             in_specs=(spec,) + tab_specs,
             out_specs=spec,
-            # pallas_call outputs carry no varying-mesh-axes metadata yet
             check_vma=False,
         )
-        return fn(f, *arrays)
+        return jax.jit(fn), arrays
 
     def apply(self, f: jax.Array, axis: int = 2) -> jax.Array:
         """Apply the grid's scheme along ``axis`` (0=z, 1=y, 2=x).
@@ -845,13 +537,10 @@ class DistributedCompactSolver:
         @timeit phase report the reference prints for compute_RHS /
         primary / reduced / sum (code/cuda/timer.py:4-16, compact.py:46-65).
         Each phase is dispatched and synced separately, so the numbers
-        include per-dispatch overhead — indicative on tunnelled runtimes,
-        accurate on locally attached devices; use utils.timing.chain_time
-        on the full op for benchmark figures.
+        include one dispatch each; time the full op for benchmark figures.
         """
         import numpy as np
 
-        from ..ops.derivatives import resolve_method
         from ..utils.timing import phase_timer
 
         grid = self.grid
@@ -861,12 +550,7 @@ class DistributedCompactSolver:
         p = grid.proc_shape[axis3]
         n = grid.shape[axis3]
         inv_dx = 1.0 / grid.spacing[axis3]
-        method = resolve_method(
-            self.method, f.dtype, n // p,
-            derivative_order=scheme.derivative_order,
-        )
-        if method == "thomas":
-            method = "pcr"
+        method = self._local_method(f.dtype, n // p)
         tables = direction_tables(scheme, n, p)
         dtype = jnp.float64 if f.dtype == jnp.float64 else jnp.float32
         names = tables.fields_for(method) if p > 1 else ()
@@ -905,7 +589,6 @@ class DistributedCompactSolver:
                     p=p,
                     inv_dx=inv_dx,
                     method=method,
-                    interpret=self.interpret,
                 ),
                 0,
                 src,

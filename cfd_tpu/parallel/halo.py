@@ -3,8 +3,8 @@
 Replaces the reference's 6-face MPI halo machinery — ``global_to_local``
 with Memcpy3D face packs and GPU-aware Isend/Irecv
 (/root/reference/code/cuda/gpuDA.py:61-132, 244-278) — with one collective
-permute per direction inside ``shard_map``. XLA handles packing; ICI carries
-the faces. Edge masking matches the reference's ``_forward_swap`` /
+permute per direction inside ``shard_map``. XLA handles packing; the
+device interconnect (NVLink between GPUs) carries the faces. Edge masking matches the reference's ``_forward_swap`` /
 ``_backward_swap`` send-only/recv-only behaviour (gpuDA.py:182-216):
 ``ppermute`` leaves non-destination shards with zeros, exactly the
 "boundary untouched" semantics their DA tests assert.

@@ -1,10 +1,10 @@
-"""Device-mesh grid descriptor — the TPU-native counterpart of the
+"""Device-mesh grid descriptor — the JAX counterpart of the
 reference's PETSc-DMDA-like ``DA`` class (/root/reference/code/cuda/
 gpuDA.py:7-39, code/ocl/mpi_util.py).
 
 Where the reference builds an MPI Cartesian communicator
 (``comm.Create_cart``, gpuDA.py:26) and per-direction line
-sub-communicators (``get_line_DA``, gpuDA.py:154-180), the TPU version
+sub-communicators (``get_line_DA``, gpuDA.py:154-180), this version
 names the axes of a ``jax.sharding.Mesh`` — collectives scoped to one
 mesh-axis name *are* the line communicators, so no sub-communicator
 machinery is needed.
@@ -93,7 +93,7 @@ class Grid:
     def distribute(self, f):
         """Place a global field [nz, ny, nx] with the pencil sharding.
 
-        The TPU counterpart of the reference's root-IO block scatter
+        The counterpart of the reference's root-IO block scatter
         (``DA_scatter_blocks``, gpuDA.py:434-460): XLA moves each pencil to
         its owning device."""
         if f.shape[-3:] != self.shape:

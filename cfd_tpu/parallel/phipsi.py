@@ -1,13 +1,13 @@
 """Device-side phi/psi (parameterized-LU) distributed tridiagonal solve.
 
-The TPU rebuild of the reference's *second* distributed algorithm — the
+The device-side rebuild of the reference's *second* distributed algorithm — the
 CFDNS/Roadrunner NPTS sweeps of /root/reference/lanl-implementation/
 npts.c:275-576 (python port lanl-implementation/python/npts.py), which
 round 1 carried only as the CPU oracle (cfd_tpu/oracle/lanl.py). Exposed as
 ``DistributedCompactSolver(..., method='phipsi')``; non-periodic schemes
 only, matching the reference.
 
-Algorithm, reshaped for TPUs:
+Algorithm, reshaped for accelerators:
 
 * The global LU pivots ``beta`` and everything RHS-independent (``psi``,
   ``eta``, the per-shard bidiagonal-inverse operators, the chain-closure
@@ -17,7 +17,7 @@ Algorithm, reshaped for TPUs:
 * Each shard's forward substitution ``phi_i = rhs_i - k_i phi_{i-1}`` is a
   dense matmul against the precomputed inverse of its unit-lower-bidiagonal
   block (the inverse decays geometrically, so it is well-conditioned) —
-  sequential work becomes one MXU pass, exactly like the substructuring
+  sequential work becomes one matmul, exactly like the substructuring
   path's block solves.
 * The reference's serial rank-to-rank closure of the affine face chain
   ``Y_r = phi^last_r + psi^last_r Y_{r-1}`` (npts.c:314-447) is replaced by
@@ -28,13 +28,8 @@ Algorithm, reshaped for TPUs:
   gather+dot (npts.c:449-569).
 
 Cost per line point vs the default substructuring method: two dense block
-passes and two gathers instead of one pass and one gather. Measured on the
-8-virtual-device CPU mesh (benchmarks/results/scaling_cpu_mesh.json,
-both methods same-run): phipsi is 3.5-7x *faster* there in 11 of 12
-sharded configs — the CPU regime is dispatch- and local-solve-dominated,
-where phipsi's dense-matmul locals beat substructuring's O(log n) PCR
-passes; see docs/DESIGN.md for why the structural count still favors
-substructuring as the default on ICI-connected TPU meshes. Kept as a
+passes and two gathers instead of one pass and one gather, so the
+structural count favours substructuring as the default. Kept as a
 first-class method, for algorithm parity, and for on-device
 cross-validation (1e-10 agreement asserted in tests).
 """

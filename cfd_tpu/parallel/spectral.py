@@ -7,7 +7,7 @@ gather-heavy all-to-one data movement. This module implements the classic
 currently sharding it makes the axis whole (further splitting another
 local axis), a local batched 1-D FFT runs at full speed, and the layout is
 carried forward — at most three all_to_alls forward, three back, every
-collective a balanced ICI exchange of exactly the local block size.
+collective a balanced exchange of exactly the local block size.
 
 Ordering invariant: when axis ``a`` is gathered over the mesh-axis group
 ``G`` (ordered coarsest-split first), the lex-ordered concat enumerates
@@ -27,8 +27,7 @@ Requirements (checked): periodic scheme; ny % (pz*py*px) == 0,
 
 Reference lineage: beyond the reference (it has no elliptic solver); the
 decomposition mirrors what its LANL CFDNS consumers do with MPI pencil
-transposes (npts.c's blktri pencils), rebuilt as shard_map + all_to_all
-on ICI.
+transposes (npts.c's blktri pencils), rebuilt as shard_map + all_to_all.
 """
 
 from __future__ import annotations
@@ -65,77 +64,24 @@ def _fft_plan(proc_shape):
     return plan, shards_of
 
 
-def _use_mm_stages(dtype, shape) -> bool:
-    """Whether the per-axis pencil transforms run as MXU matmul-DFT stages
-    (ops/poisson._dft_tables) instead of ``jnp.fft``.
-
-    On TPU f32 this is BOTH a correctness and a speed choice: the TPU's
-    own f32 FFT mangles Nyquist-plane modes (~2.8e-1 at 256^3, measured
-    vs host f64 numpy — benchmarks/results/ns_v5e.json gates), and the
-    dense-DFT tensordots beat it at table-friendly sizes. Same knob as
-    the single-device route (CFD_TPU_MATMUL_DFT, read at trace time).
-    """
-    import os
-
-    knob = os.environ.get("CFD_TPU_MATMUL_DFT", "auto")
-    if knob in ("0", "1"):
-        return knob == "1"
-    return (
-        dtype == jnp.float32
-        and max(shape) <= 1024
-        and jax.default_backend() == "tpu"
-    )
-
-
-def _fft3_fwd(fl, plan, use_mm=False):
-    from ..ops.poisson import _dft_apply, _dft_tables
-
+def _fft3_fwd(fl, plan):
     f = fl
     for axis, split, g in plan:
         if g:
             f = lax.all_to_all(
                 f, g, split_axis=split, concat_axis=axis, tiled=True
             )
-        if not use_mm:
-            f = (
-                jnp.fft.rfft(f, axis=2)
-                if axis == 2
-                else jnp.fft.fft(f, axis=axis)
-            )
-            continue
-        n = f.shape[axis]
-        t = _dft_tables(n)
-        if axis == 2:  # r2c on the real input
-            re, im = _dft_apply(f, None, t[0], t[1], 2)
-        else:
-            re, im = _dft_apply(jnp.real(f), jnp.imag(f), t[2], t[3], axis)
-        f = lax.complex(re, im)
+        f = jnp.fft.rfft(f, axis=2) if axis == 2 else jnp.fft.fft(f, axis=axis)
     return f
 
 
-def _fft3_inv(fh, plan, nx_full, use_mm=False):
-    from ..ops.poisson import _DFT_PREC, _dft_apply, _dft_tables
-
+def _fft3_inv(fh, plan, nx_full):
     f = fh
     for axis, split, g in reversed(plan):
-        if not use_mm:
-            if axis == 2:
-                f = jnp.fft.irfft(f, n=nx_full, axis=2)
-            else:
-                f = jnp.fft.ifft(f, axis=axis)
-        elif axis == 2:  # c2r, hermitian doubling folded into the tables
-            t = _dft_tables(nx_full)
-            re, im = jnp.real(f), jnp.imag(f)
-            out = jnp.tensordot(
-                jnp.asarray(t[6]), re, axes=([1], [2]), precision=_DFT_PREC
-            ) - jnp.tensordot(
-                jnp.asarray(t[7]), im, axes=([1], [2]), precision=_DFT_PREC
-            )
-            f = jnp.moveaxis(out, 0, 2)
+        if axis == 2:
+            f = jnp.fft.irfft(f, n=nx_full, axis=2)
         else:
-            t = _dft_tables(f.shape[axis])
-            re, im = _dft_apply(jnp.real(f), jnp.imag(f), t[4], t[5], axis)
-            f = lax.complex(re, im)
+            f = jnp.fft.ifft(f, axis=axis)
         if g:
             f = lax.all_to_all(
                 f, g, split_axis=axis, concat_axis=split, tiled=True
@@ -178,13 +124,10 @@ def pencil_fft3(f: jax.Array, grid: Grid) -> jax.Array:
     _check_divisibility(grid.shape, grid.proc_shape)
     plan, _ = _fft_plan(grid.proc_shape)
     spec = grid.spec()
-    use_mm = _use_mm_stages(f.dtype, grid.shape)
 
     def body(fl):
-        fh = _fft3_fwd(fl, plan, use_mm)
-        return (
-            _fft3_inv(fh, plan, grid.shape[-1], use_mm).real.astype(fl.dtype)
-        )
+        fh = _fft3_fwd(fl, plan)
+        return _fft3_inv(fh, plan, grid.shape[-1]).real.astype(fl.dtype)
 
     return shard_map(
         body, mesh=grid.mesh, in_specs=(spec,), out_specs=spec,
@@ -252,10 +195,8 @@ def solve_poisson_sharded(
                 own = own & (_lex_rank(g) == 0)
         return own
 
-    use_mm = _use_mm_stages(rhs.dtype, grid.shape)
-
     def body(fl, tz, ty, tx):
-        fh = _fft3_fwd(fl, plan, use_mm)
+        fh = _fft3_fwd(fl, plan)
         lz = _pencil_slice(tz, 0, fh.shape[0], shards_of)
         ly = _pencil_slice(ty, 1, fh.shape[1], shards_of)
         lx = _pencil_slice(tx, 2, fh.shape[2], shards_of)
@@ -269,9 +210,7 @@ def solve_poisson_sharded(
         if mean != 0.0:
             mask = jnp.zeros(ph.shape, bool).at[0, 0, 0].set(_owns_zero_mode())
             ph = jnp.where(mask, jnp.asarray(mean * npts, ph.dtype), ph)
-        return (
-            _fft3_inv(ph, plan, grid.shape[-1], use_mm).real.astype(fl.dtype)
-        )
+        return _fft3_inv(ph, plan, grid.shape[-1]).real.astype(fl.dtype)
 
     return shard_map(
         body,
@@ -286,9 +225,10 @@ def project_sharded(u, grid: Grid, scheme: CompactScheme = None):
     """Sharded-native Helmholtz projection:
     ``u - grad(solve_poisson(div u))`` with the distributed compact
     divergence/gradient and the pencil-FFT Poisson inverse — the
-    two-FFT 'compact' form of ops.poisson.project (measured ~2x the
-    six-FFT spectral form on TPU). ``divergence(project_sharded(u))``
-    vanishes to rounding, same as the single-device projection."""
+    two-FFT 'compact' form of ops.poisson.project, which needs two
+    pencil transforms where the per-mode form needs six.
+    ``divergence(project_sharded(u))`` vanishes to rounding, same as the
+    single-device projection."""
     from .compact import DistributedCompactSolver
 
     scheme = scheme if scheme is not None else grid.scheme

@@ -315,10 +315,7 @@ def get_filter(
 
     Filters are ``derivative_order=0`` schemes: no spacing scale, the
     symmetric RHS form, and every solver backend/oracle/distributed path of
-    this package applies unchanged — including the lane/sublane fold
-    kernels, whose table-driven form serves filters and d2 schemes at
-    n <= FOLD_MAX (ops/pallas_lane.py routing); only the roll-form fast
-    paths are first-derivative-specific.
+    this package applies unchanged.
     """
     if not -0.5 < alpha < 0.5:
         raise ValueError(f"filter alpha must be in (-0.5, 0.5), got {alpha}")

@@ -1,7 +1,8 @@
-"""Utilities: timing, configuration, coordinates."""
+"""Utilities: timing, profiling, checkpointing, compile-cache placement."""
 
 from .checkpointing import restore_state, save_state
-from .profiling import device_op_time_ms, trace
+from .compile_cache import compile_cache_dir, enable_compile_cache
+from .profiling import trace
 from .timing import chain_time, phase_timer
 
 __all__ = [
@@ -10,5 +11,6 @@ __all__ = [
     "save_state",
     "restore_state",
     "trace",
-    "device_op_time_ms",
+    "compile_cache_dir",
+    "enable_compile_cache",
 ]

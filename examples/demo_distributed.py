@@ -1,4 +1,4 @@
-"""Distributed demo on a virtual CPU mesh (runs anywhere, no TPU needed).
+"""Distributed demo on a virtual CPU mesh (runs anywhere, no GPU needed).
 
 The analogue of the reference's mpiexec demos, with the MPI ranks replaced
 by an 8-device ('z','y','x') mesh:

@@ -1,4 +1,4 @@
-// cfd_oracle — native CPU oracle for the TPU compact-FD framework.
+// cfd_oracle — native CPU oracle for the compact-FD framework.
 //
 // C++ counterpart of the reference's C/MPI numerical oracle
 // (/root/reference/lanl-implementation/npts.c): the phi/psi

@@ -122,24 +122,8 @@ def test_closure_ghosts_reproduce_closure_rhs(rng, scheme):
     )
 
 
-@pytest.mark.parametrize("scheme", ALL_SCHEMES, ids=IDS)
-def test_pallas_interpret_vs_oracle(rng, scheme):
-    # the fused kernel in interpreter mode on CPU, f32
-    f = rng.standard_normal((32, 4, 8))
-    dx = 0.021
-    from cfd_tpu.ops.pallas_fused import fused_derivative_lines
-
-    got = np.asarray(
-        fused_derivative_lines(
-            jnp.asarray(f, jnp.float32), dx, scheme, interpret=True
-        )
-    )
-    expect = derivative_np(scheme, f, dx, axis=0)
-    np.testing.assert_allclose(got, expect, rtol=2e-3, atol=2e-3)
-
-
 def test_matmul_method_f32(rng):
-    # the MXU dense-operator path at f32: roundoff-level agreement
+    # the dense-operator path at f32 (HIGHEST): roundoff-level agreement
     f = rng.standard_normal((6, 4, 64)).astype(np.float32)
     got = np.asarray(
         cfd_tpu.derivative(jnp.asarray(f), 0.05, SCHEME4, axis=-1, method="matmul")
@@ -157,13 +141,6 @@ def test_matmul_axis_handling(rng, axis):
     )
     ref = derivative_np(SCHEME6, f, 0.1, axis=axis)
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-11)
-
-
-def test_pallas_rejects_f64():
-    from cfd_tpu.ops.pallas_fused import fused_derivative_lines
-
-    with pytest.raises(ValueError, match="float32"):
-        fused_derivative_lines(jnp.zeros((16, 4), jnp.float64), 0.1, SCHEME4)
 
 
 @pytest.mark.parametrize("scheme", ALL_SCHEMES, ids=IDS)
@@ -249,161 +226,6 @@ def test_jvp_matches_linearity(rng):
     fn = lambda h: cfd_tpu.derivative(h, 0.1, SCHEME6, axis=0)
     _, jv = jax.jvp(fn, (f,), (v,))
     np.testing.assert_allclose(np.asarray(jv), np.asarray(fn(v)), rtol=1e-11)
-
-
-@pytest.mark.parametrize("scheme", ALL_SCHEMES, ids=IDS)
-@pytest.mark.parametrize(
-    "n,fold",
-    [(256, True), (256, False), (384, False), (512, True)],
-    ids=["n256-fold", "n256-roll", "n384-roll", "n512-fold"],
-)
-def test_lane_kernel_interpret_vs_oracle(rng, scheme, n, fold):
-    # the transpose-free lane-axis kernel (interpreter mode on CPU), f32,
-    # with a +3 mean offset — the cancellation stress that exposed the
-    # f-space functional bug; both the fold and the roll forms
-    # (see ops/pallas_lane.py docstring)
-    from cfd_tpu.ops.pallas_lane import lane_derivative
-
-    dx = 2 * np.pi / n
-    x = np.arange(n) * dx
-    # cast BEFORE the oracle: the comparison measures the kernel's own f32
-    # arithmetic, not the d/dx-amplified input rounding (~2e-5 at 1/dx=41)
-    f = (
-        (np.sin(x) + 3.0)[None, :] * (1 + 0.1 * rng.standard_normal((16, 1)))
-    ).astype(np.float32)
-    got = np.asarray(
-        lane_derivative(jnp.asarray(f), dx, scheme, interpret=True, fold=fold)
-    )
-    expect = derivative_np(scheme, np.asarray(f, np.float64), dx, axis=-1)
-    scale = np.abs(expect).max()
-    # fold rounding grows with n on smooth fields (docstring): 1e-5 covers
-    # the supported-by-default n<=FOLD_MAX range; 512 is explicit opt-in
-    tol = 4e-5 if (fold and n > 256) else 1e-5
-    assert np.abs(got - expect).max() / scale < tol
-
-
-def test_lane_kernel_fold_default_matches_forms(rng):
-    # the default picks fold at n<=FOLD_MAX and rolls beyond
-    from cfd_tpu.ops.pallas_lane import FOLD_MAX, lane_derivative
-
-    assert FOLD_MAX == 256
-    n = 256
-    f = jnp.asarray(rng.standard_normal((8, n)).astype(np.float32))
-    d_auto = lane_derivative(f, 0.01, SCHEME4, interpret=True)
-    d_fold = lane_derivative(f, 0.01, SCHEME4, interpret=True, fold=True)
-    np.testing.assert_array_equal(np.asarray(d_auto), np.asarray(d_fold))
-
-
-def test_lane_kernel_batch_padding(rng):
-    # batch sizes that don't divide the row-block size exercise the pad path
-    from cfd_tpu.ops.pallas_lane import lane_derivative
-
-    n = 256
-    dx = 0.01
-    f = rng.standard_normal((3, 7, n)).astype(np.float32)
-    got = np.asarray(
-        lane_derivative(jnp.asarray(f), dx, SCHEME4, interpret=True)
-    )
-    expect = derivative_np(SCHEME4, np.asarray(f, np.float64), dx, axis=-1)
-    assert np.abs(got - expect).max() / np.abs(expect).max() < 1e-5
-
-
-@pytest.mark.parametrize("fold", [True, False], ids=["fold", "roll"])
-@pytest.mark.parametrize("scheme", ALL_SCHEMES, ids=IDS)
-def test_sublane_kernel_interpret_vs_oracle(rng, scheme, fold):
-    # the transpose-free sublane-axis kernel (dfdy/dfdz layouts), f32, with
-    # the same +3 mean-offset cancellation stress as the lane-kernel test,
-    # in both the fold and roll forms
-    from cfd_tpu.ops.pallas_sublane import sublane_derivative
-
-    n = 256
-    dx = 2 * np.pi / n
-    x = np.arange(n) * dx
-    f = (
-        (np.sin(x) + 3.0)[None, :, None]
-        * (1 + 0.1 * rng.standard_normal((3, 1, 24)))
-    ).astype(np.float32)
-    got = np.asarray(
-        sublane_derivative(
-            jnp.asarray(f), dx, scheme, axis=1, interpret=True, fold=fold
-        )
-    )
-    expect = derivative_np(scheme, np.asarray(f, np.float64), dx, axis=1)
-    scale = np.abs(expect).max()
-    assert np.abs(got - expect).max() / scale < 1e-5
-
-
-def test_sublane_kernel_axis0_and_lane_padding(rng):
-    # leading-axis (dfdz-style) use plus a lane count that doesn't divide
-    # the column block, exercising the pad path
-    from cfd_tpu.ops.pallas_sublane import sublane_derivative
-
-    n = 256
-    dx = 0.01
-    f = rng.standard_normal((n, 5, 13)).astype(np.float32)
-    got = np.asarray(
-        sublane_derivative(
-            jnp.asarray(f), dx, SCHEME4, axis=0, cols=128, interpret=True
-        )
-    )
-    expect = derivative_np(SCHEME4, np.asarray(f, np.float64), dx, axis=0)
-    assert np.abs(got - expect).max() / np.abs(expect).max() < 1e-5
-
-
-def test_sublane_kernel_rejects_unsupported():
-    from cfd_tpu.ops.pallas_sublane import sublane_derivative, sublane_supported
-
-    assert not sublane_supported(SCHEME4, 100, jnp.float32)
-    # round 5: single-block (nb=1) lines are supported
-    assert sublane_supported(SCHEME4, 128, jnp.float32)
-    assert not sublane_supported(SCHEME4, 256, jnp.float64)
-    with pytest.raises(ValueError):  # minor axis belongs to the lane kernel
-        sublane_derivative(jnp.zeros((4, 256), jnp.float32), 0.1, SCHEME4, axis=-1)
-    with pytest.raises(ValueError):
-        sublane_derivative(jnp.zeros((256, 4), jnp.float64), 0.1, SCHEME4, axis=0)
-
-
-def test_single_block_kernels_match_oracle():
-    """Round 5: n=128 single-block (nb=1) lane/sublane routes — one block
-    cyclically coupled to itself through the self-coupled 2x2 reduced
-    system (parallel/compact.direction_tables). All four scheme classes,
-    interpret mode, vs the host f64 scipy-banded oracle."""
-    from cfd_tpu.oracle import derivative_np
-    from cfd_tpu.ops.pallas_lane import lane_derivative
-    from cfd_tpu.ops.pallas_sublane import sublane_derivative
-    from cfd_tpu.schemes import get_filter, get_scheme
-
-    rng = np.random.default_rng(0)
-    f64 = rng.standard_normal((8, 128, 128))
-    f = jnp.asarray(f64, jnp.float32)
-    for sch in (
-        SCHEME4_PERIODIC,
-        SCHEME4,
-        get_scheme(4, True, 2),
-        get_filter(6, periodic=True),
-    ):
-        ref = derivative_np(sch, f64, 0.1, axis=-1)
-        out = np.asarray(lane_derivative(f, 0.1, sch, interpret=True))
-        assert np.max(np.abs(out - ref)) < 1e-5 * np.max(np.abs(ref)), sch.name
-        ref2 = derivative_np(sch, f64, 0.1, axis=-2)
-        out2 = np.asarray(
-            sublane_derivative(f, 0.1, sch, axis=-2, interpret=True)
-        )
-        assert np.max(np.abs(out2 - ref2)) < 1e-5 * np.max(np.abs(ref2)), (
-            sch.name
-        )
-
-
-def test_lane_kernel_rejects_unsupported():
-    from cfd_tpu.ops.pallas_lane import lane_derivative, lane_supported
-
-    assert not lane_supported(SCHEME4, 100, jnp.float32)  # not 128-multiple
-    assert lane_supported(SCHEME4, 128, jnp.float32)  # nb=1 route (round 5)
-    assert not lane_supported(SCHEME4, 256, jnp.float64)
-    with pytest.raises(ValueError):
-        lane_derivative(jnp.zeros((4, 100), jnp.float32), 0.1, SCHEME4)
-    with pytest.raises(ValueError):
-        lane_derivative(jnp.zeros((4, 256), jnp.float64), 0.1, SCHEME4)
 
 
 @pytest.mark.parametrize(

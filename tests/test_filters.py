@@ -116,43 +116,17 @@ def test_distributed_filter(rng, periodic):
 
 
 def test_filter_routing():
-    """auto: filters fold on the second-minor axis only (the lane-axis fold
-    measured slower than the dense matmul for width-3 filter stencils)."""
-    import jax as _jax
+    """auto: filters (derivative order 0) take PCR on the CPU and the
+    measured order-0 route of each axis class on the GPU."""
+    from cfd_tpu.ops.derivatives import _GPU_ROUTES, AXIS_CLASSES, resolve_method
 
-    from cfd_tpu.ops.derivatives import resolve_method
-
-    if _jax.default_backend() == "cpu":
-        pytest.skip("TPU routing only")
-    rm = lambda **kw: resolve_method(
-        "auto", jnp.float32, 256, derivative_order=0, **kw
-    )
-    assert rm(minor_axis=True) == "matmul"
-    assert rm(second_minor=True) == "pallas"
-    assert rm() == "matmul"
-
-
-def test_fold_kernels_filter(rng):
-    """Filters ride the lane/sublane fold kernels (no mean subtraction —
-    filter B preserves constants); interpret mode, f32 roundoff accuracy."""
-    from cfd_tpu.ops.pallas_lane import lane_derivative, lane_supported
-    from cfd_tpu.ops.pallas_sublane import sublane_derivative, sublane_supported
-
-    n = 256
-    f64 = rng.standard_normal((8, n)) + 3.0  # offset exercises no-demean
-    f = jnp.asarray(f64, jnp.float32)
-    for periodic in (True, False):
-        sch = get_filter(6, 0.45, periodic)
-        assert lane_supported(sch, n, jnp.float32)
-        assert sublane_supported(sch, n, jnp.float32)
-        ex = derivative_np(sch, np.float64(np.float32(f64)).T, 1.0).T
-        got = np.asarray(lane_derivative(f, 1.0, sch, interpret=True))
-        assert np.abs(got - ex).max() / np.abs(ex).max() < 5e-6
-        f3 = jnp.asarray(f64.T[:, :, None] * np.ones((1, 1, 4)), jnp.float32)
-        got_s = np.asarray(
-            sublane_derivative(f3, 1.0, sch, axis=0, interpret=True)
-        )[:, :, 0].T
-        assert np.abs(got_s - ex).max() / np.abs(ex).max() < 5e-6
+    for cls in AXIS_CLASSES:
+        rm = lambda platform: resolve_method(
+            "auto", jnp.float32, 256, platform=platform, axis_class=cls,
+            scheme=get_filter(),
+        )
+        assert rm("cpu") == "pcr"
+        assert rm("gpu") == _GPU_ROUTES[(cls, "float32", 0)][0]
 
 
 def test_distributed_filter_field_all_axes(rng):

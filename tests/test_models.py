@@ -168,101 +168,3 @@ def test_distributed_d2_laplacian_bundle():
 
     with _pytest.raises(ValueError, match="derivative_order=2"):
         Derivs.distributed(solver, d2_solver=solver)
-
-
-def test_fused_rk3_step_matches_generic():
-    """The fully-fused RK3 substep path (ops/fused_step.py: four kernel
-    dispatches, no elementwise HBM passes) advances the field identically
-    to the generic rhs/step form, to f32 arithmetic on the increment."""
-    import dataclasses
-
-    from cfd_tpu.ops.fused_step import (
-        fused_substep_supported,
-        make_fused_substep,
-    )
-    from cfd_tpu.schemes import get_scheme
-
-    rng = np.random.default_rng(7)
-    s1 = SCHEME4_PERIODIC
-    s2 = get_scheme(4, True, derivative=2)
-    shp = (64, 256, 256)
-    assert fused_substep_supported(shp, jnp.float32, s1, s2)
-    f = jnp.asarray(rng.standard_normal(shp), jnp.float32)
-    u = tuple(
-        jnp.asarray(rng.standard_normal(shp), jnp.float32) for _ in range(3)
-    )
-    spacing = (0.04, 0.03, 0.02)
-    derivs = Derivs.single_device(
-        spacing, s1, method="auto", second_derivative=True
-    )
-    # Derivs.single_device wires the fused path in (engages on TPU only);
-    # here build the interpret-mode variant to run the kernels on CPU
-    assert derivs.fused_substep is not None
-    generic = AdvectionDiffusion(
-        dataclasses.replace(derivs, fused_substep=None), nu=1e-2
-    )
-    fused = AdvectionDiffusion(
-        dataclasses.replace(
-            derivs,
-            fused_substep=make_fused_substep(spacing, s1, s2, interpret=True),
-        ),
-        nu=1e-2,
-    )
-    dt = 1e-3
-    fg = generic.step(f, u, dt)
-    ff = fused.step(f, u, dt)
-    inc = float(jnp.max(jnp.abs(fg - f)))
-    assert float(jnp.max(jnp.abs(ff - fg))) / inc < 1e-3
-
-
-def test_fused_substep_falls_back_when_unsupported():
-    """Unsupported shapes/dtypes return None from the fused substep and the
-    model silently runs the generic path (here: CPU backend, no interpret)."""
-    from cfd_tpu.schemes import get_scheme
-
-    derivs = Derivs.single_device(
-        (0.1, 0.1, 0.1), SCHEME4_PERIODIC, method="auto", second_derivative=True
-    )
-    assert derivs.fused_substep is not None
-    f = jnp.zeros((64, 256, 256), jnp.float32)
-    u = (f, f, f)
-    # on the CPU test backend the trace-time probe must decline
-    assert derivs.fused_substep(f, u, None, 1e-3, 1e-2, 0.0, 1.0 / 3.0) is None
-    model = AdvectionDiffusion(derivs, nu=1e-2)
-    out = model.step(f, u, 1e-3)
-    assert out.shape == f.shape
-
-
-def test_fused_burgers_step_matches_generic():
-    """Burgers through the fused substeps == the generic rhs/step form."""
-    import dataclasses
-
-    from cfd_tpu.ops.fused_step import make_fused_substep
-    from cfd_tpu.schemes import get_scheme
-
-    rng = np.random.default_rng(11)
-    s1 = SCHEME4_PERIODIC
-    s2 = get_scheme(4, True, derivative=2)
-    shp = (64, 256, 256)
-    u = tuple(
-        jnp.asarray(0.1 * rng.standard_normal(shp), jnp.float32)
-        for _ in range(3)
-    )
-    spacing = (0.04, 0.03, 0.02)
-    derivs = Derivs.single_device(
-        spacing, s1, method="auto", second_derivative=True
-    )
-    generic = Burgers(dataclasses.replace(derivs, fused_substep=None), nu=1e-2)
-    fused = Burgers(
-        dataclasses.replace(
-            derivs,
-            fused_substep=make_fused_substep(spacing, s1, s2, interpret=True),
-        ),
-        nu=1e-2,
-    )
-    dt = 1e-3
-    ug = generic.step(u, dt)
-    uf = fused.step(u, dt)
-    for cg, cf, c0 in zip(ug, uf, u):
-        inc = float(jnp.max(jnp.abs(cg - c0)))
-        assert float(jnp.max(jnp.abs(cf - cg))) / inc < 1e-3

@@ -211,7 +211,7 @@ def test_distributed_jit_end_to_end():
 
 @pytest.mark.parametrize("scheme", [SCHEME4, SCHEME6_PERIODIC], ids=["p4", "p6per"])
 def test_distributed_matmul_method(scheme):
-    # the MXU dense-operator local solve, forced on the CPU mesh
+    # the dense-operator local solve, forced on the CPU mesh
     mesh = _mesh((1, 1, 4))
     shape = (8, 8, 32)
     spacing = (0.1, 0.1, 0.05)
@@ -222,19 +222,6 @@ def test_distributed_matmul_method(scheme):
     got = np.asarray(solver.dfdx(grid.distribute(jnp.asarray(f))))
     expect = derivative_np(scheme, f, spacing[2], axis=2)
     np.testing.assert_allclose(got, expect, rtol=1e-10, atol=1e-11)
-
-
-def test_distributed_pallas_interpret():
-    # the fused-kernel distributed path, interpreter mode, f32
-    mesh = _mesh((1, 1, 4))
-    shape = (4, 8, 32)
-    grid = Grid(mesh, shape, (0.1, 0.1, 0.05), SCHEME4)
-    solver = cfd_tpu.DistributedCompactSolver(grid, method="pallas", interpret=True)
-    rng = np.random.default_rng(11)
-    f = rng.standard_normal(shape).astype(np.float32)
-    got = np.asarray(solver.dfdx(grid.distribute(jnp.asarray(f))))
-    expect = derivative_np(SCHEME4, f, 0.05, axis=2)
-    np.testing.assert_allclose(got, expect, rtol=2e-3, atol=2e-3)
 
 
 def test_exchange_3d_corners():
@@ -441,15 +428,6 @@ def test_distributed_thomas_aliases_pcr():
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-12)
 
 
-def test_distributed_pallas_rejects_f64():
-    n = 32
-    grid = Grid(_mesh((2, 2, 2)), (n, n, n), (0.1, 0.1, 0.1), SCHEME4)
-    solver = cfd_tpu.DistributedCompactSolver(grid, method="pallas")
-    f = grid.distribute(jnp.zeros((n, n, n), jnp.float64))
-    with pytest.raises(ValueError, match="float32"):
-        solver.dfdx(f)
-
-
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_profile_derivative_all_axes(axis, capsys):
     # the per-phase profiler must work for every direction (round 1's was
@@ -526,3 +504,43 @@ def test_phipsi_single_shard_axis():
     got = np.asarray(solver.dfdx(fj))
     expect = derivative_np(SCHEME4, f, d, axis=-1)
     np.testing.assert_allclose(got, expect, rtol=1e-10, atol=1e-11)
+
+
+def test_solver_reuses_compiled_program():
+    """Eager calls reuse one jitted program per (axis, dtype)."""
+    n = 16
+    grid = Grid(_mesh((2, 2, 2)), (n, n, n), (0.1, 0.1, 0.1), SCHEME4)
+    solver = cfd_tpu.DistributedCompactSolver(grid)
+    f = grid.distribute(jnp.ones((n, n, n)))
+    a = solver.dfdx(f)
+    b = solver.dfdx(2.0 * f)
+    assert len(solver._programs) == 1
+    np.testing.assert_allclose(np.asarray(b), 2.0 * np.asarray(a), rtol=1e-12)
+    solver.dfdz(f)
+    solver.dfdx(f.astype(jnp.float32))
+    assert len(solver._programs) == 3
+
+
+@pytest.mark.parametrize(
+    "platform,n_local,expected",
+    [("cpu", 256, "pcr"), ("gpu", 64, "matmul"), ("gpu", 256, None)],
+)
+def test_distributed_local_route(monkeypatch, platform, n_local, expected):
+    """'auto' on a sharded line: PCR on the CPU; on the GPU the dense block
+    inverse where the whole-line table picks a dense or stencil route."""
+    from cfd_tpu.ops.derivatives import _GPU_ROUTES
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    grid = Grid(_mesh((1, 1, 2)), (8, 8, 2 * n_local), (0.1,) * 3, SCHEME4)
+    got = cfd_tpu.DistributedCompactSolver(grid)._local_method("float32", n_local)
+    if expected is None:
+        table = _GPU_ROUTES[("leading", "float32", 1)][0]
+        expected = "matmul" if table in ("matmul", "stencil") else "pcr"
+    assert got == expected
+    # sharded lines have no scan-based local solve: 'thomas' runs PCR there
+    assert (
+        cfd_tpu.DistributedCompactSolver(grid, method="thomas")._local_method(
+            "float32", n_local
+        )
+        == "pcr"
+    )

@@ -54,20 +54,11 @@ def test_oracle_matches_direct_solve(rng, scheme):
 
 
 @pytest.mark.parametrize("scheme", D2_SCHEMES, ids=IDS)
-@pytest.mark.parametrize("method", ["pcr", "thomas", "matmul", "pallas"])
+@pytest.mark.parametrize("method", ["pcr", "thomas", "matmul"])
 def test_backends_match_oracle(rng, scheme, method):
     f = rng.standard_normal((6, 8, 48))
     dx = 0.04
     ex = derivative_np(scheme, f, dx, axis=-1)
-    if method == "pallas":
-        # f32 fused kernel in interpret mode (the TPU kernel's semantics)
-        from cfd_tpu.ops.pallas_fused import fused_derivative_lines
-
-        flat = jnp.asarray(np.moveaxis(f, -1, 0).reshape(48, -1), jnp.float32)
-        got = np.asarray(fused_derivative_lines(flat, dx, scheme, interpret=True))
-        ex2 = np.moveaxis(ex, -1, 0).reshape(48, -1)
-        assert np.abs(got - ex2).max() / np.abs(ex2).max() < 2e-5
-        return
     got = np.asarray(cfd_tpu.derivative(jnp.asarray(f), dx, scheme, axis=-1, method=method))
     np.testing.assert_allclose(got, ex, atol=1e-9)
 
@@ -159,45 +150,18 @@ def test_d2_rejects_first_derivative_scheme():
 
 
 def test_d2_routing():
-    """auto: d2 takes the fold kernels on minor/second-minor axes within
-    the fold range, the dense/blocked MXU operator elsewhere."""
-    from cfd_tpu.ops.derivatives import resolve_method
-    from cfd_tpu.ops.pallas_lane import lane_supported
-    from cfd_tpu.ops.pallas_sublane import sublane_supported
+    """auto: the CPU takes PCR; the GPU takes the measured d2 route of each
+    axis class, and the dense operator below the measured line lengths."""
+    from cfd_tpu.ops.derivatives import _GPU_ROUTES, AXIS_CLASSES, resolve_method
 
-    if jax.default_backend() != "cpu":
-        rm = lambda **kw: resolve_method(
-            "auto", jnp.float32, kw.pop("n", 256), derivative_order=2, **kw
+    for cls in AXIS_CLASSES:
+        rm = lambda platform, n=256: resolve_method(
+            "auto", jnp.float32, n, platform=platform, axis_class=cls,
+            scheme=cfd_tpu.SCHEME4_D2,
         )
-        assert rm(minor_axis=True) == "pallas"
-        assert rm(second_minor=True) == "pallas"
-        assert rm() == "matmul"
-        assert rm(minor_axis=True, n=512) == "matmul"
-    # fold kernels serve d2 at any supported n since the per-block demean
-    # (auto still routes n > FOLD_MAX to matmul; pallas is explicit there)
-    assert lane_supported(SCHEME4_D2_PERIODIC, 256, jnp.float32)
-    assert lane_supported(SCHEME4_D2_PERIODIC, 512, jnp.float32)
-    assert sublane_supported(SCHEME4_D2_PERIODIC, 256, jnp.float32)
-    assert sublane_supported(SCHEME4_D2_PERIODIC, 512, jnp.float32)
-
-
-def test_sublane_fold_kernel_d2(rng):
-    """Sublane fold form serves d2 along non-minor axes (interpret mode)."""
-    from cfd_tpu.ops.pallas_sublane import sublane_derivative
-
-    n = 256
-    dx = 2 * math.pi / n
-    f64 = rng.standard_normal((n, 6, 4)) + 0.7
-    f = jnp.asarray(f64, jnp.float32)
-    for scheme in (SCHEME4_D2_PERIODIC, SCHEME6_D2):
-        ex = derivative_np(scheme, np.float64(np.float32(f64)), dx, axis=0)
-        got = np.asarray(sublane_derivative(f, dx, scheme, axis=0, interpret=True))
-        rel = np.abs(got - ex).max() / np.abs(ex).max()
-        assert rel < 5e-5, (scheme.name, rel)
-    with pytest.raises(ValueError, match="fold"):
-        sublane_derivative(
-            jnp.zeros((256, 8), jnp.float32), 0.1, SCHEME4_D2, axis=0, fold=False
-        )
+        assert rm("cpu") == "pcr"
+        assert rm("gpu") == _GPU_ROUTES[(cls, "float32", 2)][0]
+        assert rm("gpu", n=64) == "matmul"
 
 
 @pytest.mark.parametrize("mesh_shape", [(2, 2, 2), (1, 1, 8)])
@@ -234,37 +198,3 @@ def test_autodiff_through_d2():
     )
     ex = cfd_tpu.d2fdx2(t, dx, SCHEME4_D2_PERIODIC)
     np.testing.assert_allclose(np.asarray(jvp), np.asarray(ex), atol=1e-10)
-
-
-def test_lane_fold_kernel_d2(rng):
-    """The lane kernel's fold form is table-generic and serves d2 schemes
-    (interpret mode; the roll form refuses them)."""
-    from cfd_tpu.ops.pallas_lane import lane_derivative, lane_supported
-
-    n = 256
-    dx = 2 * math.pi / n
-    f64 = rng.standard_normal((16, n)) + 0.7
-    f = jnp.asarray(f64, jnp.float32)
-    for scheme in (SCHEME4_D2_PERIODIC, SCHEME4_D2, SCHEME6_D2):
-        assert lane_supported(scheme, n, jnp.float32)
-        ex = derivative_np(scheme, np.float64(np.float32(f64)).T, dx).T
-        got = np.asarray(lane_derivative(f, dx, scheme, interpret=True))
-        rel = np.abs(got - ex).max() / np.abs(ex).max()
-        assert rel < 5e-5, (scheme.name, rel)
-    # the per-block demean makes the fold form d2-safe past FOLD_MAX too
-    n2 = 512
-    dx2 = 2 * math.pi / n2
-    f64b = rng.standard_normal((8, n2)) + 0.7
-    fb = jnp.asarray(f64b, jnp.float32)
-    exb = derivative_np(
-        SCHEME4_D2_PERIODIC, np.float64(np.float32(f64b)).T, dx2
-    ).T
-    gotb = np.asarray(
-        lane_derivative(fb, dx2, SCHEME4_D2_PERIODIC, interpret=True)
-    )
-    relb = np.abs(gotb - exb).max() / np.abs(exb).max()
-    assert relb < 2e-4, relb
-    with pytest.raises(ValueError, match="fold"):
-        lane_derivative(
-            jnp.zeros((8, 256), jnp.float32), 0.1, SCHEME4_D2, fold=False
-        )

@@ -106,7 +106,8 @@ def _ld(fn, payload):
 
 
 def _synthetic_xspace():
-    """Hand-encode an XSpace with one TPU plane: two modules, 3+2 events."""
+    """Hand-encode an XSpace with one GPU device plane: two modules, 3+2
+    events, plus a decoy host plane."""
 
     def event(mid, dur_ps):
         return _ld(4, _tag(1, 0) + _varint(mid) + _tag(3, 0) + _varint(dur_ps))
@@ -120,7 +121,7 @@ def _synthetic_xspace():
          event(2, 205_000_000), event(2, 210_000_000)]
     )
     plane = (
-        _ld(2, b"/device:TPU:0")
+        _ld(2, b"/device:GPU:0")
         + meta(1, "jit_kernel(123)")
         + meta(2, "jit__bench_scale(456)")
         + _ld(3, line)
@@ -152,10 +153,39 @@ def test_xplane_latest_file_layout(tmp_path):
     assert min(durs["jit_kernel(123)"]) == 0.19
 
 
-def test_device_op_time_cpu_fallback():
-    # CPU runtimes write no /device:TPU:0 plane -> (inf, inf, 0), the
-    # signal bench.py uses to fall back to chain-slope sampling
-    from cfd_tpu.utils.profiling import device_op_time_ms
+def _two_card_xspace():
+    def event(mid, dur_ps):
+        return _ld(4, _tag(1, 0) + _varint(mid) + _tag(3, 0) + _varint(dur_ps))
 
-    ms, floor, k = device_op_time_ms(lambda g: g + 1.0, jnp.ones((8, 8)), iters=2)
-    assert k == 0 and ms == float("inf")
+    def meta(mid, name):
+        inner = _tag(1, 0) + _varint(mid) + _ld(2, name.encode())
+        return _ld(4, _tag(1, 0) + _varint(mid) + _ld(2, inner))
+
+    def plane(name, dur_ps):
+        modules = _ld(2, b"XLA Modules") + event(1, dur_ps)
+        stream = _ld(2, b"Stream #13") + event(2, dur_ps // 2)
+        return _ld(
+            1,
+            _ld(2, name.encode())
+            + meta(1, "jit_step(1)")
+            + meta(2, "loop_fusion")
+            + _ld(3, modules)
+            + _ld(3, stream),
+        )
+
+    return plane("/device:GPU:0", 100_000_000) + plane("/device:GPU:1", 300_000_000)
+
+
+def test_xplane_selects_gpu_plane_and_lines(tmp_path):
+    from cfd_tpu.utils.xplane import parse_device_durations
+
+    p = tmp_path / "x.xplane.pb"
+    p.write_bytes(_two_card_xspace())
+    assert parse_device_durations(str(p)) == {"jit_step(1)": [0.1]}
+    assert parse_device_durations(str(p), plane="/device:GPU:1") == {
+        "jit_step(1)": [0.3]
+    }
+    # a stream line lists the kernels launched on it
+    assert parse_device_durations(str(p), line="Stream #13") == {
+        "loop_fusion": [0.05]
+    }
